@@ -1,0 +1,220 @@
+"""Smoke test of the PyTorch port on one CUDA card: python3 chip_smoke.py
+
+Builds the port's CUDA kernel from myosuite_tpu_torch/csrc, holds it against
+its plain PyTorch version on the card, drives the main path
+(MtxHandReachRandom-v0, reset + 16 control steps at batch 4096) and checks
+that every substep's solve went through the kernel, then replays the golden
+trajectory of the JAX package. Prints one JSON line of kernel numbers and,
+last, {"ok": true, "device": {...}}. Exits non-zero, with no result line,
+when any phase fails or when there is no CUDA card.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+BATCH = 4096
+STEPS = 16               # bench.py's protocol: 16 control steps
+# Kernel vs plain version, on every output: |ours - ref| <= TOL |ref| +
+# TOL max(1, max |ref|). The plain version sums in the kernel's order and the
+# kernel is built without multiply-add contraction, so most outputs agree
+# to the last bit.
+TOL = 1e-4
+FP32_FLOPS = 67e12       # H100 SXM, FP32 outside the tensor cores
+HBM_BYTES = 3.35e12      # H100 SXM HBM3, bytes/s
+
+
+def compare(name, ours, ref, tol):
+  """|ours - ref| <= tol |ref| + tol max(1, max |ref|) for every output.
+  Returns the max abs error."""
+  worst_abs = 0.0
+  for o, r, out in zip(ours, ref, ("qacc", "qfrc", "force", "a_smooth",
+                                   "qacc_euler")):
+    same = float((o == r).double().mean())
+    o, r = o.double(), r.double()
+    scale = max(1.0, float(r.abs().max()))
+    err = (o - r).abs()
+    ok = bool((err <= tol * r.abs() + tol * scale).all())
+    ok = ok and bool(torch.isfinite(o).all())
+    print(f"  {name} {out}: max_abs_err {float(err.max()):.3e} "
+          f"max_rel_err {float(err.max()) / scale:.3e} (scale {scale:.3e}, "
+          f"tol {tol:g}) bit-equal {same:.4f} ok {ok}")
+    if not ok:
+      raise AssertionError(f"kernel disagrees with its plain version: "
+                           f"{name} {out}")
+    worst_abs = max(worst_abs, float(err.max()))
+  return worst_abs
+
+
+def cuda_ms(fn, n):
+  """Mean milliseconds per call of fn over n calls, by CUDA events."""
+  fn()
+  torch.cuda.synchronize()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  for _ in range(n):
+    fn()
+  end.record()
+  torch.cuda.synchronize()
+  return start.elapsed_time(end) / n
+
+
+def profile_step(env, state, action):
+  """One control step under torch.profiler: (device-busy ms, wall ms,
+  kernel launches, the five costliest kernels as (name, ms, calls))."""
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    env.step(state, action)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+  kernels = [e for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+  busy = sum(e.self_device_time_total for e in kernels) / 1e3
+  launches = sum(e.count for e in kernels)
+  top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+  return busy, wall, launches, [(e.key[:60], e.self_device_time_total / 1e3,
+                                 e.count) for e in top]
+
+
+def main():
+  if not torch.cuda.is_available():
+    print("chip_smoke: no CUDA card", file=sys.stderr)
+    return 2
+  import myosuite_tpu_torch
+  from myosuite_tpu_torch.physics import forward
+  from myosuite_tpu_torch.physics import newton_kernel as nk
+
+  dev = torch.device("cuda")
+  smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True).stdout.strip().splitlines()[0]
+  print(f"nvidia-smi: {smi}")
+  print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}")
+
+  # 1. build
+  path, seconds, log = nk.build(force=True)
+  print(f"phase 1 build: {nk.SOURCE} -> {path} in {seconds:.1f} s")
+  for line in log.splitlines():
+    if "registers" in line or "spill" in line or "smem" in line:
+      print("  ptxas:", line.strip())
+
+  # 2. kernel against its plain version on synthetic systems
+  print("phase 2 kernel vs plain version")
+  for batch in (5, 37):
+    rng = np.random.default_rng(batch)
+    args = [torch.from_numpy(np.stack(x)).to(dev) for x in zip(
+        *[nk.random_system(rng, 5, 9, 3) for _ in range(batch)])]
+    kw = dict(n_friction=3, iterations=6, ls_iterations=6)
+    compare(f"synthetic batch {batch}", nk.newton_solve(*args, **kw),
+            nk.newton_solve_reference(*args, **kw), TOL)
+
+  # 3. the main path
+  env = myosuite_tpu_torch.make("MtxHandReachRandom-v0")
+  gen = torch.Generator(dev).manual_seed(0)
+  t0 = time.perf_counter()
+  state = env.reset(gen, BATCH)
+  torch.cuda.synchronize()
+  print(f"phase 3 main path: reset at batch {BATCH} in "
+        f"{time.perf_counter() - t0:.2f} s; nv {env.model.nv}, nu "
+        f"{env.model.nu}, nefc {env.model.plan['constraint'].nefc}")
+  for _ in range(2):   # warm-up
+    state = env.step(state, torch.rand(BATCH, env.action_size,
+                                       generator=gen, device=dev))
+  torch.cuda.synchronize()
+  nk.launches = 0
+  t0 = time.perf_counter()
+  for _ in range(STEPS):
+    state = env.step(state, torch.rand(BATCH, env.action_size,
+                                       generator=gen, device=dev))
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = nk.launches
+  obs = state.obs["state"]
+  print(f"  {STEPS} control steps: {wall / STEPS * 1e3:.2f} ms per control "
+        f"step, {BATCH * STEPS / wall:.0f} env-steps/s; kernel launches "
+        f"{launches}; obs {tuple(obs.shape)} finite "
+        f"{bool(torch.isfinite(obs).all())}")
+  want = STEPS * env._n_substeps
+  if launches != want:
+    raise AssertionError(f"kernel launched {launches} times, want {want}")
+  if not bool(torch.isfinite(obs).all()):
+    raise AssertionError("non-finite observations")
+  busy, prof_wall, n_launch, top = profile_step(
+      env, state, torch.rand(BATCH, env.action_size, generator=gen,
+                             device=dev))
+  step_ms = wall / STEPS * 1e3
+  print(f"  profile of one control step: device busy {busy:.2f} ms "
+        f"({prof_wall:.2f} ms wall under the profiler), {n_launch} kernel "
+        f"launches; idle share of the unprofiled step "
+        f"{max(0.0, 1.0 - busy / step_ms):.3f}")
+  for name, ms_k, n in top:
+    print(f"    {ms_k:.3f} ms in {n} launches: {name}")
+
+  # kernel vs plain version at the main path's shapes, and their times
+  args, kw = forward.solve_inputs(env.model, state.data)
+  ours = nk.newton_solve(*args, **kw)
+  ref = nk.newton_solve_reference(*args, **kw)
+  max_abs = compare(f"hand batch {BATCH}", ours, ref, TOL)
+  ms = cuda_ms(lambda: nk.newton_solve(*args, **kw), 50)
+  plain_ms = cuda_ms(lambda: nk.newton_solve_reference(*args, **kw), 3)
+  nv, nefc = args[1].shape[2], args[1].shape[1]
+  n_weighted = nk.weighted_rows(ours[2], kw["n_friction"])
+  flops = BATCH * nk.flops_per_env(nv, nefc, kw["iterations"],
+                                   kw["ls_iterations"], n_weighted)
+  nbytes = BATCH * nk.bytes_per_env(nv, nefc)
+  t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+  print(f"  newton_solver: {ms:.4f} ms per launch (plain version "
+        f"{plain_ms:.3f} ms); work {flops:.3e} FP32 ops ({n_weighted:.2f} "
+        f"of {nefc} rows weighted at the solution), {nbytes:.3e} bytes; "
+        f"bound {max(t_ops, t_bytes):.4f} ms by {t_ops:.4f} ms of operations "
+        f"and {t_bytes:.4f} ms of bytes")
+
+  # 4. golden trajectory of the JAX package, replayed on the card
+  from myosuite_tpu_torch.envs.registry import ASSETS
+  with np.load(f"{ASSETS}/hand_reach_golden.npz") as z:
+    golden = {k: z[k] for k in z.files}
+  genv = myosuite_tpu_torch.make("MtxHandReachFixed-v0")
+  gstate = genv.reset(torch.Generator(dev).manual_seed(0),
+                      golden["actions"].shape[1])
+  gaps = {k: 0.0 for k in ("obs", "reward", "done", "qpos", "qvel", "act")}
+  for i, a in enumerate(golden["actions"]):
+    gstate = genv.step(gstate, torch.from_numpy(a).to(dev))
+    got = dict(obs=gstate.obs["state"], reward=gstate.reward,
+               done=gstate.done, qpos=gstate.data.qpos,
+               qvel=gstate.data.qvel, act=gstate.data.act)
+    for k in gaps:
+      gap = float(np.abs(got[k].cpu().numpy() - golden[k][i]).max())
+      gaps[k] = max(gaps[k], gap)
+  print("phase 4 golden: " + ", ".join(
+      f"{k} {v:.3e} (tol {float(golden['atol_' + k]):.3e})"
+      for k, v in gaps.items()))
+  for k, v in gaps.items():
+    if not v <= float(golden["atol_" + k]):
+      raise AssertionError(f"golden trajectory: {k} off by {v}")
+
+  print(json.dumps({"kernels": [{
+      "name": "newton_solver", "route": "cuda",
+      "source": "myosuite_tpu_torch/csrc/newton_solver.cu",
+      "replaces": "myosuite_tpu/physics/pallas_solver.py:95",
+      "launches": launches, "max_abs_err": max_abs, "ms": ms,
+      "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+      "library_ms": None}]}))
+  print(json.dumps({"ok": True, "device": {
+      "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+      "count": torch.cuda.device_count()}}))
+  return 0
+
+
+if __name__ == "__main__":
+  sys.exit(main())

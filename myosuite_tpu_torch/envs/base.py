@@ -1,0 +1,144 @@
+"""Environment base: the `State` of a batch of envs and `MyoEnv`.
+
+An env holds a `Model` and a plain config dict and steps a `State` whose
+tensors all lead with the env axis. Episode bookkeeping (truncation,
+boundaries) happens on the device with no host round trip.
+"""
+
+from __future__ import annotations
+
+import abc
+import dataclasses
+from typing import Any, Dict
+
+import torch
+
+from myosuite_tpu_torch.physics import forward as physics_forward
+from myosuite_tpu_torch.physics import io as physics_io
+from myosuite_tpu_torch.physics.types import Data, Model
+
+
+@dataclasses.dataclass
+class State:
+  """Physics data and RL signals of a batch of envs."""
+  data: Data
+  obs: Dict[str, torch.Tensor]
+  reward: torch.Tensor          # (B,)
+  done: torch.Tensor            # (B,) float 0/1
+  metrics: Dict[str, torch.Tensor]
+  info: Dict[str, Any]
+
+  def replace(self, **kw) -> "State":
+    return dataclasses.replace(self, **kw)
+
+
+class MyoEnv(abc.ABC):
+  """Musculoskeletal env over the PyTorch physics engine.
+
+  Subclasses implement reset() plus the obs/reward/done/metrics/info
+  hooks; step() composes them in the JAX package's stage order.
+  """
+
+  def __init__(self, model: Model, config: Dict[str, Any]):
+    self._config = dict(config)
+    self._model = model
+    self._n_substeps = int(round(config["ctrl_dt"] / config["sim_dt"]))
+
+  @property
+  def model(self) -> Model:
+    return self._model
+
+  @property
+  def device(self) -> torch.device:
+    return self._model.device
+
+  @property
+  def action_size(self) -> int:
+    return self._model.nu
+
+  @property
+  def dt(self) -> float:
+    return float(self._config["ctrl_dt"])
+
+  @property
+  def max_episode_steps(self) -> int:
+    return int(self._config["max_episode_steps"])
+
+  @property
+  def config(self) -> Dict[str, Any]:
+    return self._config
+
+  @staticmethod
+  def norm_actions(action: torch.Tensor) -> torch.Tensor:
+    """Sigmoid projection of policy actions into (0, 1) muscle space:
+    1/(1+exp(-5(a-0.5)))."""
+    return 1.0 / (1.0 + torch.exp(-5.0 * (action - 0.5)))
+
+  @abc.abstractmethod
+  def reset(self, generator: torch.Generator, batch: int) -> State:
+    ...
+
+  def step(self, state: State, action: torch.Tensor) -> State:
+    ctrl = action
+    if self._config.get("norm_actions", True):
+      ctrl = self.norm_actions(action)
+    return self.step_ctrl(state, ctrl)
+
+  def step_ctrl(self, state: State, ctrl: torch.Tensor) -> State:
+    """Step with already-normalized muscle controls."""
+    state = self._step_simulation(state, ctrl)
+    state = state.replace(obs=self._get_obs(state.data, state.info))
+    rewards = self._get_rewards(state.data, state.info)
+    state = state.replace(reward=self._sum_rewards(rewards))
+    state = state.replace(done=self._get_done(state))
+    state = state.replace(
+        metrics={**state.metrics, **self._get_metrics(state, rewards)})
+    return state.replace(info=self._get_info(state))
+
+  def _step_simulation(self, state: State, ctrl: torch.Tensor) -> State:
+    data = state.data.replace(ctrl=ctrl)
+    data = physics_forward.step_n(self._model, data, self._n_substeps)
+    info = {**state.info, "step_count": state.info["step_count"] + 1}
+    return state.replace(data=data, info=info)
+
+  def _sum_rewards(self, rewards: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """dense = sum of weight * reward, in the rewards' order."""
+    weights = self._config["reward_weights"]
+    total = torch.zeros((), dtype=torch.float32, device=self.device)
+    for k, r in rewards.items():
+      total = total + float(weights.get(k, 1.0)) * r
+    return total
+
+  def _make_data(self, qpos: torch.Tensor, qvel: torch.Tensor) -> Data:
+    d = physics_io.make_data(self._model, qpos.shape[0])
+    d = d.replace(qpos=qpos, qvel=qvel)
+    # settle derived quantities so obs at reset are valid
+    d = physics_forward.fwd_position(self._model, d)
+    return physics_forward.fwd_velocity(self._model, d)
+
+  @abc.abstractmethod
+  def _get_obs(self, data: Data, info: Dict) -> Dict[str, torch.Tensor]:
+    ...
+
+  @abc.abstractmethod
+  def _get_rewards(self, data: Data, info: Dict) -> Dict[str, torch.Tensor]:
+    ...
+
+  def _get_done(self, state: State) -> torch.Tensor:
+    return torch.zeros_like(state.reward)
+
+  def _get_metrics(self, state: State, rewards: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+    return {}
+
+  def _get_info(self, state: State) -> Dict[str, Any]:
+    return state.info
+
+  def _episode_boundary(self, state: State):
+    """(truncation, boundary) per env."""
+    done = state.done
+    truncation = torch.where(
+        state.info["step_count"] >= self.max_episode_steps,
+        1.0 - done, torch.zeros_like(done))
+    boundary = (done != 0) | (truncation != 0)
+    return truncation, boundary

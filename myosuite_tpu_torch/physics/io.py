@@ -1,0 +1,280 @@
+"""Model loading: MJCF -> field dict -> `Model`, and `.npz` round trips.
+
+MuJoCo's compiler is the MJCF front end and runs only on the host, inside
+`put_model`; it is imported there and nowhere else. `model_fields` turns a
+compiled `mujoco.MjModel` into a dict of plain numpy arrays, and
+`model_from_numpy` builds the torch `Model` from such a dict. `save_model`
+writes the dict as `.npz`, so a machine without MuJoCo loads a model that
+was compiled beforehand with `load_model`.
+
+The loader also precomputes what the step keeps static: the topological
+levels of the kinematic tree, the collision-pair table with its contact
+capacity, and each module's index plan.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from myosuite_tpu_torch.physics import types
+from myosuite_tpu_torch.physics.types import (OPTION_PARAMS, OPTION_STATIC,
+                                              PARAM_FIELDS, SIZE_FIELDS,
+                                              STRUCT_FIELDS, Data, GeomType,
+                                              Model, Option)
+
+# Number of contact points each supported pair class can generate.
+_PAIR_NCON = {
+    (GeomType.HFIELD, GeomType.SPHERE): 1,
+    (GeomType.HFIELD, GeomType.CAPSULE): 2,
+    (GeomType.HFIELD, GeomType.BOX): 4,
+    (GeomType.PLANE, GeomType.SPHERE): 1,
+    (GeomType.PLANE, GeomType.CAPSULE): 2,
+    (GeomType.PLANE, GeomType.ELLIPSOID): 1,
+    (GeomType.PLANE, GeomType.BOX): 4,
+    (GeomType.SPHERE, GeomType.SPHERE): 1,
+    (GeomType.SPHERE, GeomType.CAPSULE): 1,
+    (GeomType.SPHERE, GeomType.ELLIPSOID): 1,
+    (GeomType.SPHERE, GeomType.BOX): 1,
+    (GeomType.CAPSULE, GeomType.CAPSULE): 1,
+    (GeomType.CAPSULE, GeomType.BOX): 2,
+    (GeomType.BOX, GeomType.BOX): 8,
+    (GeomType.PLANE, GeomType.MESH): 4,
+    (GeomType.SPHERE, GeomType.MESH): 1,
+    (GeomType.CAPSULE, GeomType.MESH): 2,
+    (GeomType.BOX, GeomType.MESH): 4,
+}
+
+
+def _body_levels(parentid: np.ndarray) -> Tuple[Tuple[int, ...], ...]:
+  """Group body ids (excluding world=0) into topological levels."""
+  n = len(parentid)
+  depth = np.zeros(n, dtype=int)
+  for i in range(1, n):
+    depth[i] = depth[parentid[i]] + 1
+  levels = []
+  for d in range(1, depth.max() + 1 if n > 1 else 1):
+    ids = tuple(int(i) for i in np.nonzero(depth == d)[0])
+    if ids:
+      levels.append(ids)
+  return tuple(levels)
+
+
+def _collision_pairs(m) -> np.ndarray:
+  """Static (npair, 4) table [geom1, geom2, ncon_slots, condim], with
+  MuJoCo's pair filtering (contype/conaffinity, same-body, parent-child and
+  <exclude> rules)."""
+  pairs = []
+  excl = set()
+  for sig in m.exclude_signature:
+    excl.add((int(sig) >> 16, int(sig) & 0xFFFF))
+
+  weld = m.body_weldid
+  for g1 in range(m.ngeom):
+    for g2 in range(g1 + 1, m.ngeom):
+      t1, t2 = int(m.geom_type[g1]), int(m.geom_type[g2])
+      b1, b2 = int(m.geom_bodyid[g1]), int(m.geom_bodyid[g2])
+      mask = ((m.geom_contype[g1] & m.geom_conaffinity[g2]) or
+              (m.geom_contype[g2] & m.geom_conaffinity[g1]))
+      if not mask:
+        continue
+      w1, w2 = int(weld[b1]), int(weld[b2])
+      if w1 == w2:
+        continue
+      pw1, pw2 = int(weld[m.body_parentid[w1]]), int(weld[m.body_parentid[w2]])
+      if (pw1 == w2 and w2 != 0) or (pw2 == w1 and w1 != 0):
+        continue
+      if (b1, b2) in excl or (b2, b1) in excl:
+        continue
+      if t1 > t2:
+        g1s, g2s, t1s, t2s = g2, g1, t2, t1
+      else:
+        g1s, g2s, t1s, t2s = g1, g2, t1, t2
+      key = (GeomType(t1s), GeomType(t2s))
+      if key not in _PAIR_NCON:
+        continue
+      condim = max(int(m.geom_condim[g1]), int(m.geom_condim[g2]))
+      p1, p2 = int(m.geom_priority[g1]), int(m.geom_priority[g2])
+      if p1 != p2:
+        condim = int(m.geom_condim[g1 if p1 > p2 else g2])
+      pairs.append((g1s, g2s, _PAIR_NCON[key], condim))
+
+  if not pairs:
+    return np.zeros((0, 4), dtype=np.int32)
+  return np.array(pairs, dtype=np.int32)
+
+
+def _subtree_mask(m) -> np.ndarray:
+  """(nbody, nbody) matrix: mask[i, j] = 1 iff body j is in subtree(i)."""
+  n = m.nbody
+  mask = np.zeros((n, n), dtype=np.float32)
+  for j in range(n):
+    b = j
+    while True:
+      mask[b, j] = 1.0
+      if b == 0:
+        break
+      b = int(m.body_parentid[b])
+  return mask
+
+
+def _wrap_sidesites(m) -> np.ndarray:
+  """Side-site ids for sphere/cylinder wrap segments (-1 when none)."""
+  side = np.full(m.nwrap, -1, dtype=np.int32)
+  for i in range(m.nwrap):
+    t = int(m.wrap_type[i])
+    if t in (int(types.WrapType.SPHERE), int(types.WrapType.CYLINDER)):
+      side[i] = int(m.wrap_prm[i])
+  return side
+
+
+def put_model(mj, device=None) -> Model:
+  """`Model` of a compiled `mujoco.MjModel`, or of an MJCF string.
+
+  The only place the port touches MuJoCo; the step path never does.
+  """
+  if isinstance(mj, str):
+    import mujoco
+    mj = mujoco.MjModel.from_xml_string(mj)
+  return model_from_numpy(model_fields(mj), device)
+
+
+def model_fields(mj) -> Dict[str, np.ndarray]:
+  """Field dict (plain numpy) of a compiled `mujoco.MjModel`: the input of
+  `model_from_numpy` and `save_model`."""
+  pairs = _collision_pairs(mj)
+  ncon_max = int(pairs[:, 2].sum()) if len(pairs) else 0
+
+  assert mj.nhfield <= 1, "at most one heightfield per model"
+  if mj.nhfield == 1:
+    hf_nrow, hf_ncol = int(mj.hfield_nrow[0]), int(mj.hfield_ncol[0])
+    hf_size = np.asarray(mj.hfield_size[0], dtype=np.float32)
+    hf_geomid = -1
+    for g in range(mj.ngeom):
+      if int(mj.geom_type[g]) == int(GeomType.HFIELD):
+        hf_geomid = g
+  else:
+    hf_nrow = hf_ncol = 0
+    hf_geomid = -1
+    hf_size = np.zeros(4, dtype=np.float32)
+
+  sizes = dict(nq=mj.nq, nv=mj.nv, nu=mj.nu, na=mj.na, nbody=mj.nbody,
+               njnt=mj.njnt, ngeom=mj.ngeom, nsite=mj.nsite,
+               ntendon=mj.ntendon, nwrap=mj.nwrap, nmocap=mj.nmocap,
+               ncon_max=ncon_max, hfield_nrow=hf_nrow, hfield_ncol=hf_ncol,
+               hfield_geomid=hf_geomid)
+  out: Dict[str, np.ndarray] = {k: np.asarray(int(v)) for k, v in
+                                sizes.items()}
+  derived = {
+      "wrap_sidesite": _wrap_sidesites(mj),
+      "collision_pairs": pairs,
+  }
+  for k in STRUCT_FIELDS:
+    out[k] = np.array(derived[k] if k in derived else getattr(mj, k))
+  derived = {
+      "body_subtreemask": _subtree_mask(mj),
+      # floor: a degenerate muscle path (acc0 ~ 0) would otherwise get
+      # F0 = scale/acc0 ~ 1e14 (same floor as the JAX package)
+      "actuator_acc0": np.maximum(mj.actuator_acc0, 1e-3),
+      "hfield_size": hf_size,
+  }
+  for k in PARAM_FIELDS:
+    v = derived[k] if k in derived else getattr(mj, k)
+    out[k] = np.asarray(np.asarray(v), dtype=np.float32)
+  out["opt_timestep"] = np.asarray(float(mj.opt.timestep))
+  for k in OPTION_STATIC[1:]:
+    out["opt_" + k] = np.asarray(int(getattr(mj.opt, k)))
+  for k in OPTION_PARAMS:
+    out["opt_" + k] = np.asarray(getattr(mj.opt, k), dtype=np.float32)
+  return out
+
+
+def model_from_numpy(fields: Dict[str, Any], device=None) -> Model:
+  """Build the torch `Model` from a field dict of numpy arrays.
+
+  Keys are the field names of SIZE_FIELDS, STRUCT_FIELDS and PARAM_FIELDS
+  plus "opt_<name>" for the options; other keys are ignored.
+  """
+  from myosuite_tpu_torch.physics import (actuation, constraint, forward,
+                                          kinematics, smooth, tendon)
+
+  dev = types.resolve_device(device)
+  sizes = {k: int(np.asarray(fields[k])) for k in SIZE_FIELDS}
+  struct = {k: np.array(fields[k]) for k in STRUCT_FIELDS}
+  params = {k: torch.tensor(np.asarray(fields[k], dtype=np.float32),
+                            device=dev) for k in PARAM_FIELDS}
+  opt_static = {k: int(np.asarray(fields["opt_" + k]))
+                for k in OPTION_STATIC[1:]}
+  opt = Option(
+      timestep=float(np.asarray(fields["opt_timestep"])), **opt_static,
+      **{k: torch.tensor(np.asarray(fields["opt_" + k], dtype=np.float32),
+                         device=dev)
+         for k in OPTION_PARAMS})
+  m = Model(sizes=sizes, struct=struct, params=params, opt=opt,
+            body_tree=_body_levels(struct["body_parentid"]), device=dev)
+  for mod in (kinematics, tendon, actuation, smooth, constraint, forward):
+    m.plan[mod.__name__.rsplit(".", 1)[1]] = mod.make_plan(m)
+  return m
+
+
+def save_model(path: str, fields: Dict[str, np.ndarray],
+               **extra: np.ndarray) -> None:
+  """Write a field dict (and any extra arrays) as an uncompressed .npz."""
+  clash = set(fields) & set(extra)
+  if clash:
+    raise ValueError(f"extra keys clash with model fields: {sorted(clash)}")
+  np.savez(path, **fields, **extra)
+
+
+def load_model(path: str, device=None
+               ) -> Tuple[Model, Dict[str, np.ndarray]]:
+  """Read a `save_model` file; returns (Model, the extra arrays)."""
+  with np.load(path) as z:
+    fields = {k: z[k] for k in z.files}
+  model_keys = (set(SIZE_FIELDS) | set(STRUCT_FIELDS) | set(PARAM_FIELDS)
+                | {"opt_" + k for k in OPTION_STATIC + OPTION_PARAMS})
+  extra = {k: v for k, v in fields.items() if k not in model_keys}
+  return model_from_numpy(fields, device), extra
+
+
+def make_data(m: Model, batch: int, device=None) -> Data:
+  """Fresh batched Data at qpos0, everything else zeroed."""
+  dev = m.device if device is None else types.resolve_device(device)
+  f32 = torch.float32
+
+  def z(*shape):
+    return torch.zeros((batch,) + shape, dtype=f32, device=dev)
+
+  def tile(x, n):
+    x = torch.as_tensor(x, dtype=f32, device=dev)
+    return x.expand((batch, n) + x.shape).clone()
+
+  eye3 = torch.eye(3)
+  unit_quat = torch.tensor([1.0, 0.0, 0.0, 0.0])
+  nmocap = max(m.nmocap, 1)
+  return Data(
+      time=z(),
+      qpos=m.qpos0.to(dev).expand(batch, m.nq).clone(),
+      qvel=z(m.nv), act=z(m.na), ctrl=z(m.nu),
+      qfrc_applied=z(m.nv), xfrc_applied=z(m.nbody, 6),
+      mocap_pos=z(nmocap, 3), mocap_quat=tile(unit_quat, nmocap),
+      xpos=z(m.nbody, 3), xquat=tile(unit_quat, m.nbody),
+      xmat=tile(eye3, m.nbody), xipos=z(m.nbody, 3),
+      ximat=tile(eye3, m.nbody),
+      xanchor=z(m.njnt, 3), xaxis=z(m.njnt, 3),
+      geom_xpos=z(m.ngeom, 3), geom_xmat=tile(eye3, m.ngeom),
+      site_xpos=z(m.nsite, 3), site_xmat=tile(eye3, m.nsite),
+      subtree_com=z(m.nbody, 3), cinert=z(m.nbody, 10),
+      cdof=z(m.nv, 6), cdof_dot=z(m.nv, 6), cvel=z(m.nbody, 6),
+      ten_length=z(m.ntendon), ten_velocity=z(m.ntendon),
+      ten_J=z(m.ntendon, m.nv),
+      actuator_length=z(m.nu), actuator_velocity=z(m.nu),
+      actuator_moment=z(m.nu, m.nv), actuator_force=z(m.nu),
+      act_dot=z(m.na),
+      qM=z(m.nv, m.nv), qfrc_bias=z(m.nv), qfrc_passive=z(m.nv),
+      qfrc_actuator=z(m.nv), qfrc_smooth=z(m.nv), qacc_smooth=z(m.nv),
+      qfrc_constraint=z(m.nv), qacc=z(m.nv), qacc_euler=z(m.nv),
+      efc_force=z(m.plan["constraint"].nefc),
+  )

@@ -1,0 +1,137 @@
+"""Quaternion and spatial-algebra helpers, batched over leading axes.
+
+Conventions follow MuJoCo: quaternions are [w, x, y, z], spatial 6-vectors
+are [angular(3); linear(3)]. Every function acts on the last axis (or last
+two for matrices) and broadcasts over any leading axes, so one call covers
+a whole (env, body) batch.
+
+Matrix products here and in the engine run in full float32: the port never
+enables TF32 (the JAX package's `math.mm` uses HIGHEST precision for the
+same reason: mass matrices span ~1e6 in conditioning).
+"""
+
+from __future__ import annotations
+
+import torch
+
+_EPS = 1e-12
+
+
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """Cross product over the last axis, with broadcasting."""
+  a, b = torch.broadcast_tensors(a, b)
+  return torch.linalg.cross(a, b, dim=-1)
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  return (a * b).sum(-1)
+
+
+def normalize(v: torch.Tensor) -> torch.Tensor:
+  n = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+  return v / torch.clamp(n, min=_EPS)
+
+
+def norm_safe(v: torch.Tensor) -> torch.Tensor:
+  return torch.sqrt(torch.clamp((v * v).sum(-1), min=_EPS))
+
+
+def mul_quat(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """Hamilton product a*b."""
+  aw, ax, ay, az = a.unbind(-1)
+  bw, bx, by, bz = b.unbind(-1)
+  return torch.stack([
+      aw * bw - ax * bx - ay * by - az * bz,
+      aw * bx + ax * bw + ay * bz - az * by,
+      aw * by - ax * bz + ay * bw + az * bx,
+      aw * bz + ax * by - ay * bx + az * bw,
+  ], dim=-1)
+
+
+def neg_quat(q: torch.Tensor) -> torch.Tensor:
+  return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+
+
+def rotate(vec: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+  """Rotate 3-vectors by unit quaternions (world = R(q) @ local)."""
+  u = q[..., 1:4]
+  w = q[..., :1]
+  uv = cross(u, vec)
+  uuv = cross(u, uv)
+  return vec + 2.0 * (w * uv + uuv)
+
+
+def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
+  """Unit quaternions (..., 4) -> rotation matrices (..., 3, 3)."""
+  w, x, y, z = q.unbind(-1)
+  xx, yy, zz = x * x, y * y, z * z
+  xy, xz, yz = x * y, x * z, y * z
+  wx, wy, wz = w * x, w * y, w * z
+  return torch.stack([
+      torch.stack([1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy)], -1),
+      torch.stack([2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)], -1),
+      torch.stack([2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], -1),
+  ], dim=-2)
+
+
+def axis_angle_to_quat(axis: torch.Tensor, angle: torch.Tensor
+                       ) -> torch.Tensor:
+  """(unit axis (..., 3), angle (...)) -> quaternion (..., 4)."""
+  half = 0.5 * angle
+  return torch.cat([torch.cos(half)[..., None],
+                    axis * torch.sin(half)[..., None]], dim=-1)
+
+
+def quat_to_vel(q: torch.Tensor, dt: float = 1.0) -> torch.Tensor:
+  """Quaternion -> angular velocity over dt."""
+  sin_half = norm_safe(q[..., 1:4])
+  axis = q[..., 1:4] / torch.clamp(sin_half, min=_EPS)[..., None]
+  angle = 2.0 * torch.atan2(sin_half, q[..., 0])
+  angle = torch.where(angle > torch.pi, angle - 2.0 * torch.pi, angle)
+  return axis * (angle / dt)[..., None]
+
+
+def quat_diff_vel(a: torch.Tensor, b: torch.Tensor,
+                  dt: float = 1.0) -> torch.Tensor:
+  """Angular velocity that rotates a into b over dt."""
+  return quat_to_vel(mul_quat(neg_quat(a), b), dt)
+
+
+def quat_integrate(q: torch.Tensor, omega: torch.Tensor,
+                   dt: float) -> torch.Tensor:
+  """q * exp(0.5 * omega * dt) (MuJoCo's mju_quatIntegrate)."""
+  n = norm_safe(omega)
+  angle = n * dt
+  axis = omega / torch.clamp(n, min=_EPS)[..., None]
+  return normalize(mul_quat(q, axis_angle_to_quat(axis, angle)))
+
+
+def motion_cross(v: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+  """Spatial motion cross product v x u."""
+  ang = cross(v[..., :3], u[..., :3])
+  lin = cross(v[..., 3:], u[..., :3]) + cross(v[..., :3], u[..., 3:])
+  return torch.cat([ang, lin], dim=-1)
+
+
+def motion_cross_force(v: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+  """Spatial cross product v x* f for force vectors."""
+  ang = cross(v[..., :3], f[..., :3]) + cross(v[..., 3:], f[..., 3:])
+  lin = cross(v[..., :3], f[..., 3:])
+  return torch.cat([ang, lin], dim=-1)
+
+
+def inert_vec(inert10: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+  """10-parameter spatial inertia [I00 I11 I22 I01 I02 I12, m*c, m] times a
+  motion vector; returns the spatial force."""
+  i = inert10
+  w = v[..., :3]
+  imat_w = torch.stack([
+      i[..., 0] * w[..., 0] + i[..., 3] * w[..., 1] + i[..., 4] * w[..., 2],
+      i[..., 3] * w[..., 0] + i[..., 1] * w[..., 1] + i[..., 5] * w[..., 2],
+      i[..., 4] * w[..., 0] + i[..., 5] * w[..., 1] + i[..., 2] * w[..., 2],
+  ], dim=-1)
+  h = i[..., 6:9]
+  mass = i[..., 9:10]
+  ang = imat_w + cross(h, v[..., 3:])
+  lin = mass * v[..., 3:] - cross(h, w)
+  return torch.cat([ang, lin], dim=-1)

@@ -1,0 +1,397 @@
+"""The fused Newton-solver kernel: its build, its wrapper, its plain version.
+
+The CUDA kernel (`csrc/newton_solver.cu`) replaces the JAX package's Pallas
+TPU kernel `pallas_solver.py::_solver_kernel`: one launch per substep does
+the smooth solve, the whole Newton constraint solve and the
+implicit-damping Euler solve for every env. It is bound by FP32
+arithmetic (25-32 flops per byte of device traffic at nv = nefc = 23,
+above the H100's ~20 flops per byte FP32 ridge); see the source for its
+design.
+
+`newton_solve` dispatches on the device of its inputs: CUDA tensors go to
+the kernel (or raise), CPU tensors to `newton_solve_reference`, the plain
+PyTorch version, written step for step like the kernel, with the same
+clamped Cholesky (pivots clamped at 1e-12: a negative pivot gives a finite
+result, not NaN) and the same order of every sum. `launches` counts the
+kernel's launches.
+
+The kernel is compiled with `nvcc` into `_build/` at first use, keyed by a
+hash of its source and flags, and bound through ctypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from typing import Tuple
+
+import numpy as np
+import torch
+
+MAX_NV = 32            # one warp lane per dof
+ENVS_PER_BLOCK = 8     # warps (envs) per block
+_SMEM_LIMIT = 232448   # dynamic shared memory a block may use on sm_90
+_EPS = 1e-12
+_RIDGE = 1e-8
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "newton_solver.cu")
+BUILD_DIR = os.path.join(_PKG, "_build")
+# -fmad=false: no multiply-add contraction, so the plain version (which
+# has none) rounds as the kernel does; see `newton_solve_reference`.
+# chip_smoke.py holds the two to 1e-4 on the myoHand, whose Newton objective
+# is flat to float32 resolution over whole rad/s^2 of qacc: a change to
+# these flags, or to the order of any sum in the kernel, must be made in
+# the plain version too, or that check moved to the gap between the two
+# versions' objectives.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+# kernel launches since import (or since a caller reset it)
+launches = 0
+
+_lib = None
+
+
+def _nvcc() -> str:
+  path = shutil.which("nvcc")
+  if path is None:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+  if not os.path.exists(path):
+    raise RuntimeError("nvcc not found: the CUDA kernel builds only where "
+                       "the CUDA toolkit is installed")
+  return path
+
+
+def build(force: bool = False) -> Tuple[str, float, str]:
+  """Compile the kernel if needed; returns (library path, build seconds,
+  the compiler's output: ptxas register and shared-memory report)."""
+  with open(SOURCE, "rb") as f:
+    src = f.read()
+  key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+  lib = os.path.join(BUILD_DIR, f"newton_solver_{key}.so")
+  if os.path.exists(lib) and not force:
+    return lib, 0.0, ""
+  os.makedirs(BUILD_DIR, exist_ok=True)
+  fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+  os.close(fd)
+  t0 = time.perf_counter()
+  proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+                        capture_output=True, text=True)
+  seconds = time.perf_counter() - t0
+  if proc.returncode != 0:
+    os.unlink(tmp)
+    raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+  os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+  return lib, seconds, proc.stdout + proc.stderr
+
+
+def _library():
+  global _lib
+  if _lib is None:
+    path, _, _ = build()
+    lib = ctypes.CDLL(path)
+    ptr = ctypes.c_void_p
+    i32 = ctypes.c_int
+    lib.newton_solve_f32.argtypes = [ptr] * 14 + [i32] * 7 + [ptr]
+    lib.newton_solve_f32.restype = i32
+    lib.newton_solve_smem_per_env.argtypes = [i32, i32]
+    lib.newton_solve_smem_per_env.restype = i32
+    _lib = lib
+  return _lib
+
+
+def flops_per_env(nv: int, nefc: int, iterations: int, ls_iterations: int,
+                  n_weighted: float) -> float:
+  """FP32 operations one env needs per launch, counted from the algorithm:
+  a multiply-add is 2; Cholesky nv^3/3, a solve 2 nv^2, a mat-vec 2 nv^2,
+  J x 2 nefc nv, a cost evaluation a mat-vec, J x and ~6 per row. A row
+  of weight 0 adds nothing to J^T W J or to J^T f, so those count only
+  the `n_weighted` rows the data weights (`weighted_rows`). The Hessian
+  is symmetric, so J^T W J counts its lower triangle, n_weighted nv
+  (nv + 1). The warm start evaluates two costs; each iteration one, at the
+  new point, since the current point's cost, J a - aref and
+  qM (a - a_smooth) are known from the test that accepted it (the kernel
+  recomputes them, which measured faster; see its source)."""
+  chol = nv ** 3 // 3
+  solve = 2 * nv * nv
+  matvec = 2 * nv * nv
+  rows = 2 * nefc * nv
+  nw = n_weighted
+  rows_t = 2 * nw * nv
+  cost = matvec + 2 * nv + rows + 6 * nefc
+  per_iter = (rows_t + nv                        # grad
+              + nw * nv * (nv + 1) + nv * (nv + 1) // 2 + chol + solve
+              + rows + matvec + 4 * nv           # J p, qM p, g0, pmp
+              + 10 * nefc * ls_iterations + 2 * nv + cost)
+  outside = 3 * (chol + solve) + 2 * cost + rows_t + nv
+  return outside + iterations * per_iter
+
+
+def weighted_rows(force: torch.Tensor, n_friction: int) -> float:
+  """Mean rows per env that J^T W J and J^T f need at the solution (force
+  as `newton_solve` returns it): every friction row, and each limit row
+  that pushes. The warm-started iterations stay near the solution, so
+  this stands for their count."""
+  return n_friction + float((force[:, n_friction:] != 0).sum(1).double()
+                            .mean())
+
+
+def bytes_per_env(nv: int, nefc: int) -> int:
+  """Device bytes one env must move: each input read and output written
+  once (qM, J, 4 row vectors, 3 dof vectors in; 4 dof vectors and the row
+  forces out)."""
+  return 4 * (nv * nv + nefc * nv + 4 * nefc + 3 * nv + 4 * nv + nefc)
+
+
+def random_system(rng, nv: int, nefc: int, n_friction: int):
+  """One random well-posed system, as numpy float32 arrays in the order of
+  `newton_solve`'s arguments without the batch axis: a PD mass matrix,
+  `n_friction` friction rows, then limit rows about 70% active. For
+  holding the kernel against its plain version."""
+  A = rng.standard_normal((nv, nv)).astype(np.float32)
+  qM = A @ A.T + 2.0 * np.eye(nv, dtype=np.float32)
+  J = rng.standard_normal((nefc, nv)).astype(np.float32)
+  aref = rng.standard_normal(nefc).astype(np.float32)
+  R = (0.1 + rng.random(nefc)).astype(np.float32)
+  floss = np.zeros(nefc, dtype=np.float32)
+  floss[:n_friction] = 0.5 + rng.random(n_friction)
+  active = np.ones(nefc, dtype=np.float32)
+  active[n_friction:] = (rng.random(nefc - n_friction) > 0.3)
+  warm = rng.standard_normal(nv).astype(np.float32)
+  qfrc_smooth = rng.standard_normal(nv).astype(np.float32)
+  damph = (0.01 * rng.random(nv)).astype(np.float32)
+  return qM, J, aref, R, floss, active, warm, qfrc_smooth, damph
+
+
+def _check(qM, J, aref, R, floss, active, warm, qfrc_smooth, damph):
+  if qM.dim() != 3 or qM.shape[1] != qM.shape[2]:
+    raise ValueError(f"qM must be (B, nv, nv), got {tuple(qM.shape)}")
+  B, nv = qM.shape[0], qM.shape[1]
+  if nv > MAX_NV:
+    raise ValueError(f"the Newton kernel takes nv <= {MAX_NV} (one warp "
+                     f"lane per dof); this system has nv = {nv}")
+  nefc = J.shape[1]
+  want = {"J": (B, nefc, nv), "aref": (B, nefc), "R": (B, nefc),
+          "floss": (B, nefc), "active": (B, nefc), "warm": (B, nv),
+          "qfrc_smooth": (B, nv), "damph": (B, nv)}
+  got = dict(J=J, aref=aref, R=R, floss=floss, active=active, warm=warm,
+             qfrc_smooth=qfrc_smooth, damph=damph)
+  for name, shape in want.items():
+    if tuple(got[name].shape) != shape:
+      raise ValueError(f"{name} must be {shape}, got "
+                       f"{tuple(got[name].shape)}")
+  return B, nv, nefc
+
+
+def newton_solve(qM, J, aref, R, floss, active, warm, qfrc_smooth, damph,
+                 n_friction: int, iterations: int, ls_iterations: int):
+  """Fused smooth + Newton + implicit-Euler solve of a batch of systems.
+
+  Args lead with the env axis: qM (B,nv,nv), J (B,nefc,nv), aref, R,
+  floss, active (B,nefc) (active as float 0/1), warm, qfrc_smooth, damph
+  (B,nv). Rows [0, n_friction) are friction rows. Returns (qacc,
+  qfrc_constraint, efc_force, qacc_smooth, qacc_euler).
+  """
+  global launches
+  B, nv, nefc = _check(qM, J, aref, R, floss, active, warm, qfrc_smooth,
+                       damph)
+  args = (qM, J, aref, R, floss, active, warm, qfrc_smooth, damph)
+  if qM.device.type == "cpu":
+    return newton_solve_reference(*args, n_friction=n_friction,
+                                  iterations=iterations,
+                                  ls_iterations=ls_iterations)
+  if qM.device.type != "cuda":
+    raise ValueError(f"no Newton solver for device {qM.device}")
+  for a in args:
+    if a.device != qM.device or a.dtype != torch.float32 or not \
+        a.is_contiguous():
+      raise ValueError("the Newton kernel takes contiguous float32 tensors "
+                       f"on {qM.device}")
+  lib = _library()
+  smem = lib.newton_solve_smem_per_env(nv, nefc)
+  if smem > _SMEM_LIMIT:
+    raise ValueError(f"nv={nv}, nefc={nefc} needs {smem} bytes of shared "
+                     f"memory per env; a block may use {_SMEM_LIMIT}")
+  epb = min(ENVS_PER_BLOCK, _SMEM_LIMIT // smem)
+  outs = (torch.empty_like(warm), torch.empty_like(warm),
+          torch.empty_like(aref), torch.empty_like(warm),
+          torch.empty_like(warm))
+  qacc, qfrc, force, asmooth, qacc_euler = outs
+  err = lib.newton_solve_f32(
+      *[a.data_ptr() for a in args],
+      qacc.data_ptr(), qfrc.data_ptr(), force.data_ptr(),
+      asmooth.data_ptr(), qacc_euler.data_ptr(), B, nv, nefc,
+      int(n_friction), int(iterations), int(ls_iterations), epb,
+      torch.cuda.current_stream(qM.device).cuda_stream)
+  if err != 0:
+    raise RuntimeError(f"newton_solve_f32 launch failed: CUDA error {err}")
+  launches += 1
+  return qacc, qfrc, force, asmooth, qacc_euler
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version
+# ---------------------------------------------------------------------------
+
+
+#
+# Every sum below is taken in the kernel's order, and the kernel is built
+# without multiply-add contraction (`-fmad=false`), so the two round alike
+# and agree to the last bit. That matters on the myoHand: its light finger
+# dofs leave the Newton objective flat to float32 resolution over whole
+# rad/s^2 of qacc, where two summation orders would let the accept tests
+# stop at different points of equal cost.
+
+
+def _wsum(x: torch.Tensor) -> torch.Tensor:
+  """Sum over the last axis as the kernel's warp does: lane l accumulates
+  entries l, l + 32, ..., then a butterfly over the 32 lanes. Lanes past the
+  last entry hold 0, and adding 0 changes no sum, so they are left out."""
+  lanes = x[..., :32]
+  for c in range(32, x.shape[-1], 32):
+    chunk = x[..., c:c + 32]
+    lanes = torch.cat([lanes[..., :chunk.shape[-1]] + chunk,
+                       lanes[..., chunk.shape[-1]:]], -1)
+  for o in (16, 8, 4, 2, 1):
+    w = lanes.shape[-1]
+    if w <= o:
+      continue
+    lanes = torch.cat([lanes[..., :w - o] + lanes[..., o:],
+                       lanes[..., w - o:o]], -1)
+  return lanes[..., 0]
+
+
+def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+  """A x, each row summed over k in order (the kernel's `matvec`)."""
+  s = torch.zeros_like(A[..., 0])
+  for k in range(A.shape[-1]):
+    s = s + A[..., k] * x[..., k:k + 1]
+  return s
+
+
+def _mtv(A: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+  """A^T f, each column summed over rows in order (the kernel's `rows_t`)."""
+  s = torch.zeros_like(A[..., 0, :])
+  for e in range(A.shape[-2]):
+    s = s + A[..., e, :] * f[..., e:e + 1]
+  return s
+
+
+def _chol_factor(M: torch.Tensor) -> torch.Tensor:
+  """Cholesky with every pivot clamped at 1e-12; the factor's diagonal is
+  s / sqrt(max(s, 1e-12)) (Pallas kernel semantics). Right-looking, which
+  subtracts L_ik L_jk from entry (i, j) in the same k order as the kernel's
+  left-looking loop."""
+  n = M.shape[-1]
+  S = M.clone()
+  L = torch.zeros_like(M)
+  for k in range(n):
+    d = torch.sqrt(torch.clamp(S[..., k, k], min=_EPS))
+    L[..., k:, k] = S[..., k:, k] / d[..., None]
+    c = L[..., k + 1:, k]
+    S[..., k + 1:, k + 1:] = S[..., k + 1:, k + 1:] - c[..., :, None] * \
+        c[..., None, :]
+  return L
+
+
+def _chol_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """(L L^T)^-1 b, column by column as the kernel's `chol_solve`."""
+  n = b.shape[-1]
+  s = b.clone()
+  for i in range(n):
+    s[..., i] = s[..., i] / L[..., i, i]
+    s[..., i + 1:] = s[..., i + 1:] - L[..., i + 1:, i] * s[..., i:i + 1]
+  for i in reversed(range(n)):
+    s[..., i] = s[..., i] / L[..., i, i]
+    s[..., :i] = s[..., :i] - L[..., i, :i] * s[..., i:i + 1]
+  return s
+
+
+def newton_solve_reference(qM, J, aref, R, floss, active, warm, qfrc_smooth,
+                           damph, n_friction: int, iterations: int,
+                           ls_iterations: int):
+  """Plain PyTorch version of the kernel, batched; same arguments and
+  results as `newton_solve`."""
+  nefc = J.shape[1]
+  rinv = 1.0 / R
+  active = active.to(qM.dtype)
+  isfr = torch.arange(nefc, device=qM.device) < n_friction
+
+  def forces(jar):
+    quad_f = -jar * rinv
+    lim_on = active * (jar < 0.0).to(jar.dtype)
+    if n_friction == 0:
+      return lim_on * quad_f, lim_on * rinv
+    fr_force = torch.minimum(torch.maximum(quad_f, -floss), floss)
+    fr_w = (quad_f.abs() < floss).to(jar.dtype) * rinv
+    return (torch.where(isfr, fr_force, lim_on * quad_f),
+            torch.where(isfr, fr_w, lim_on * rinv))
+
+  def total_cost(a):
+    """(cost, J a - aref, qM (a - a_smooth)); the kernel's total_cost."""
+    da = a - a_smooth
+    mda = _mv(qM, da)
+    jar = _mv(J, a) - aref
+    quad = 0.5 * jar * jar * rinv
+    band = floss / torch.clamp(rinv, min=_EPS)
+    fr_cost = torch.where(jar.abs() < band, quad,
+                          floss * jar.abs() - 0.5 * floss * band)
+    lim_cost = torch.where((active != 0) & (jar < 0.0), quad,
+                           torch.zeros_like(quad))
+    cost = (0.5 * _wsum(da * mda)
+            + _wsum(torch.where(isfr, fr_cost, lim_cost)))
+    return cost, jar, mda
+
+  def pick(take, new, old):
+    return tuple(torch.where(take.view(-1, *[1] * (n.dim() - 1)), n, o)
+                 for n, o in zip(new, old))
+
+  a_smooth = _chol_solve(_chol_factor(qM), qfrc_smooth)
+  # the current point with its cost, J a - aref and qM (a - a_smooth),
+  # carried from the test that chose it: the kernel recomputes them, in the
+  # same order, so the carried values are the same bits
+  cost_w, jar_w, mda_w = total_cost(warm)
+  cost_s, jar_s, mda_s = total_cost(a_smooth)
+  a, cost, jar, mda = pick(cost_w < cost_s, (warm, cost_w, jar_w, mda_w),
+                           (a_smooth, cost_s, jar_s, mda_s))
+
+  eye_ridge = _RIDGE * torch.eye(qM.shape[-1], dtype=qM.dtype,
+                                 device=qM.device)
+  for _ in range(iterations):
+    force, w = forces(jar)
+    grad = mda - _mtv(J, force)
+    jwj = torch.zeros_like(qM)
+    for e in range(nefc):
+      jwj = jwj + (J[:, e, :, None] * w[:, e, None, None]) * J[:, e, None, :]
+    p = -_chol_solve(_chol_factor(jwj + qM + eye_ridge), grad)
+
+    jp = _mv(J, p)
+    g0 = _wsum(p * mda)
+    pmp = _wsum(p * _mv(qM, p))
+    alpha = torch.ones_like(g0)
+    for _ in range(ls_iterations):
+      force_a, w_a = forces(jar + alpha[:, None] * jp)
+      sf, sw = _wsum(torch.stack([force_a * jp, w_a * jp * jp]))
+      dphi = g0 + alpha * pmp - sf
+      ddphi = pmp + sw
+      alpha = torch.clamp(alpha - dphi / torch.clamp(ddphi, min=_EPS),
+                          0.0, 4.0)
+    a_new = a + alpha[:, None] * p
+    cost_new, jar_new, mda_new = total_cost(a_new)
+    a, cost, jar, mda = pick(cost_new <= cost,
+                             (a_new, cost_new, jar_new, mda_new),
+                             (a, cost, jar, mda))
+
+  force, _ = forces(jar)
+  qfrc = _mtv(J, force)
+  mh = qM + torch.diag_embed(damph)
+  qacc_euler = _chol_solve(_chol_factor(mh), qfrc_smooth + qfrc)
+  return a, qfrc, force, a_smooth, qacc_euler

@@ -1,0 +1,117 @@
+"""Port model loading against the JAX package, and the port's isolation.
+
+Run as a script to regenerate myosuite_tpu_torch/assets/myohand_reach.npz
+(the myoHand reach model and task config, compiled by MuJoCo here so that
+the port loads it without MuJoCo):
+
+  JAX_PLATFORMS=cpu python -m tests.test_torch_io
+"""
+
+import os
+import subprocess
+import sys
+
+import mujoco
+import numpy as np
+import pytest
+import torch
+
+from myosuite_tpu.physics import io as jax_io
+from myosuite_tpu_torch.envs import registry as torch_registry
+from myosuite_tpu_torch.physics import io as torch_io
+from myosuite_tpu_torch.physics import types as torch_types
+from tests.common import CHAIN_XML, MUSCLE_XML
+from tests.test_actuation_parity import WRAP_XML
+from tests.torch_common import hand_reach_export, jax_fields
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _assert_models_equal(a, b):
+  assert a.sizes == b.sizes
+  assert a.body_tree == b.body_tree
+  for k in torch_types.STRUCT_FIELDS:
+    x, y = np.asarray(a.struct[k]), np.asarray(b.struct[k])
+    assert x.shape == y.shape and np.array_equal(x, y), k
+  for k in torch_types.PARAM_FIELDS:
+    assert a.params[k].dtype == torch.float32, k
+    assert torch.equal(a.params[k], b.params[k]), k
+  for k in torch_types.OPTION_STATIC:
+    assert getattr(a.opt, k) == getattr(b.opt, k), k
+  for k in torch_types.OPTION_PARAMS:
+    assert torch.equal(getattr(a.opt, k), getattr(b.opt, k)), k
+
+
+@pytest.mark.parametrize("xml", [CHAIN_XML, MUSCLE_XML, WRAP_XML],
+                         ids=["chain", "muscle", "wrap"])
+def test_model_from_jax_fields_matches_put_model(xml, tmp_path):
+  mj = mujoco.MjModel.from_xml_string(xml)
+  from_jax = torch_io.model_from_numpy(jax_fields(jax_io.put_model(mj)),
+                                       device="cpu")
+  ours = torch_io.put_model(mj, device="cpu")
+  _assert_models_equal(from_jax, ours)
+  # and through the .npz round trip
+  path = str(tmp_path / "model.npz")
+  torch_io.save_model(path, torch_io.model_fields(mj), cfg_x=np.arange(3))
+  loaded, extra = torch_io.load_model(path, "cpu")
+  _assert_models_equal(ours, loaded)
+  assert list(extra) == ["cfg_x"]
+
+
+def test_committed_hand_npz_matches_fresh_export():
+  fields, extra = hand_reach_export()
+  fresh = {**fields, **extra}
+  with np.load(torch_registry.HAND_REACH_NPZ) as z:
+    committed = {k: z[k] for k in z.files}
+  assert sorted(committed) == sorted(fresh)
+  for k, v in fresh.items():
+    c = committed[k]
+    assert c.dtype == v.dtype and c.shape == v.shape, k
+    assert np.array_equal(c, v), k   # bit-equal floats, exact ints
+
+
+_ISOLATION = """
+import sys
+sys.modules["jax"] = None
+sys.modules["mujoco"] = None
+import torch
+import myosuite_tpu_torch
+from myosuite_tpu_torch.physics import forward, newton_kernel, solver
+env = myosuite_tpu_torch.make("MtxHandReachRandom-v0", device="cpu")
+state = env.reset(torch.Generator().manual_seed(0), batch=2)
+state = env.step(state, torch.full((2, env.action_size), 0.5))
+assert torch.isfinite(state.obs["state"]).all()
+bad = [k for k in sys.modules
+       if k.split(".")[0] in ("myosuite_tpu", "jax", "flax", "mujoco",
+                              "ml_collections")
+       and sys.modules[k] is not None]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_port_imports_no_jax_and_no_myosuite_tpu():
+  """With jax and mujoco unimportable, the port imports and steps the
+  committed hand model, and loads no module of the JAX package."""
+  proc = subprocess.run([sys.executable, "-c", _ISOLATION], cwd=_REPO,
+                        capture_output=True, text=True, timeout=300)
+  assert proc.returncode == 0, proc.stderr
+  assert proc.stdout.strip().endswith("ok")
+
+
+def test_make_needs_cuda_unless_cpu_is_asked(monkeypatch):
+  monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+  with pytest.raises(RuntimeError, match="CUDA is not available"):
+    torch_registry.make("MtxHandReachRandom-v0")
+  env = torch_registry.make("myoHandReachFixed-v0", device="cpu")
+  assert env.device.type == "cpu" and env.action_size == 39
+
+
+def _write_hand_npz():
+  fields, extra = hand_reach_export()
+  torch_io.save_model(torch_registry.HAND_REACH_NPZ, fields, **extra)
+  print("wrote", torch_registry.HAND_REACH_NPZ)
+
+
+if __name__ == "__main__":
+  _write_hand_npz()

@@ -1,0 +1,76 @@
+"""Helpers shared by the port's parity tests (tests/test_torch_*.py).
+
+Both packages get the same inputs: a JAX `Model`'s fields become the port's
+field dict, and states, actions and targets are made with numpy.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+
+from tests.common import MUSCLE_XML
+from tests.test_step_parity import LIMIT_XML
+
+
+def solver_6x6(xml):
+  """The model with the main path's solver settings (6 Newton iterations of
+  6 line-search steps, as the myo models set): MuJoCo's defaults of 100 x 50
+  make the JAX step take minutes to compile on a CPU."""
+  return xml.replace('<option timestep="0.002"/>',
+                     '<option timestep="0.002" iterations="6" '
+                     'ls_iterations="6"/>')
+
+
+# MUSCLE_XML with geom collisions switched off: its two arm capsules touch at
+# the elbow, which gives it a contact slot, and contacts are not ported yet.
+MUSCLE_NOCON_XML = solver_6x6(MUSCLE_XML).replace(
+    "<worldbody>",
+    '<default><geom contype="0" conaffinity="0"/></default>\n  <worldbody>')
+LIMIT6_XML = solver_6x6(LIMIT_XML)
+
+# The same arm with a limited tendon, for tendon-limit constraint rows.
+TENDON_LIMIT_XML = MUSCLE_NOCON_XML.replace(
+    '<spatial name="ext">', '<spatial name="ext" limited="true" '
+    'range="0.30 0.36">')
+
+
+def jax_fields(m):
+  """A JAX `Model`'s fields through `jax.device_get`, as the field dict the
+  port's `io.model_from_numpy` takes (options under "opt_<name>")."""
+  out = {}
+  for f in dataclasses.fields(m):
+    v = getattr(m, f.name)
+    if f.name == "opt":
+      for g in dataclasses.fields(v):
+        out["opt_" + g.name] = np.asarray(jax.device_get(getattr(v, g.name)))
+    elif f.name in ("body_tree", "mesh_vert", "mesh_face"):
+      continue   # derived by the port, or mesh colliders (not ported)
+    else:
+      out[f.name] = np.asarray(jax.device_get(v))
+  return out
+
+
+def hand_reach_export():
+  """Field dict and reach config of the JAX package's
+  MtxHandReachRandom-v0, in the layout of
+  myosuite_tpu_torch/assets/myohand_reach.npz."""
+  import myosuite_tpu
+  from myosuite_tpu_torch.envs.registry import REACH_REWARDS
+  from myosuite_tpu_torch.physics import io as torch_io
+
+  env = myosuite_tpu.make("MtxHandReachRandom-v0")
+  cfg = env.config
+  fields = torch_io.model_fields(env.mj_model)
+  extra = dict(
+      cfg_tip_sids=np.asarray(env._tip_sids, dtype=np.int32),
+      cfg_target_lo=np.asarray(cfg.target_lo, dtype=np.float32),
+      cfg_target_hi=np.asarray(cfg.target_hi, dtype=np.float32),
+      cfg_ctrl_dt=np.asarray(cfg.ctrl_dt, dtype=np.float64),
+      cfg_sim_dt=np.asarray(cfg.sim_dt, dtype=np.float64),
+      cfg_max_episode_steps=np.asarray(cfg.max_episode_steps,
+                                       dtype=np.int32),
+      cfg_far_th=np.asarray(cfg.far_th, dtype=np.float64),
+      cfg_reward_weights=np.asarray(
+          [cfg.reward_weights[k] for k in REACH_REWARDS], dtype=np.float64))
+  return fields, extra
