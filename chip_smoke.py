@@ -3,13 +3,24 @@
 Builds the port's CUDA kernel from myosuite_tpu_torch/csrc, holds it against
 its plain PyTorch version on the card, drives the main path
 (MtxHandReachRandom-v0, reset + 16 control steps at batch 4096) and checks
-that every substep's solve went through the kernel, then replays the golden
-trajectory of the JAX package. Prints one JSON line of kernel numbers and,
-last, {"ok": true, "device": {...}}. Exits non-zero, with no result line,
-when any phase fails or when there is no CUDA card.
+that every substep's solve went through the kernel, prints the kernel's
+occupancy and its split by phase (from a second, clock-stamped build), then
+replays the golden trajectory of the JAX package. Prints one JSON line of
+kernel numbers and, last, {"ok": true, "device": {...}}. Exits non-zero,
+with no result line, when any phase fails or when there is no CUDA card.
+
+  python3 chip_smoke.py --parent DIR
+
+also times the Newton kernel of another checkout DIR (one whose wrapper has
+the same C interface) against this one in turns (DIR, this, this, DIR):
+per launch, and per control step of the main path with DIR's kernel
+swapped in, and prints DIR's phase split.
 """
 
+import argparse
+import importlib.util
 import json
+import os
 import subprocess
 import sys
 import time
@@ -64,6 +75,37 @@ def cuda_ms(fn, n):
   return start.elapsed_time(end) / n
 
 
+def phase_split(label, cycles, phases):
+  """Print mean clock cycles per env (one warp) of each phase."""
+  mean = cycles.double().mean(0)
+  total = float(mean.sum())
+  print(f"  phase split, {label}: {total:.0f} cycles per warp")
+  for name, c in zip(phases, mean.tolist()):
+    print(f"    {name:14s} {c:10.0f} cycles  {c / total:6.3f}")
+
+
+def load_parent(path):
+  """The Newton-kernel module of the checkout at `path`."""
+  spec = importlib.util.spec_from_file_location(
+      "parent_newton_kernel",
+      os.path.join(path, "myosuite_tpu_torch", "physics", "newton_kernel.py"))
+  mod = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(mod)
+  return mod
+
+
+def control_steps(env, state, gen, n):
+  """ms per control step over n steps (host clock between two syncs)."""
+  dev = state.obs["state"].device
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for _ in range(n):
+    state = env.step(state, torch.rand(BATCH, env.action_size,
+                                       generator=gen, device=dev))
+  torch.cuda.synchronize()
+  return (time.perf_counter() - t0) / n * 1e3, state
+
+
 def profile_step(env, state, action):
   """One control step under torch.profiler: (device-busy ms, wall ms,
   kernel launches, the five costliest kernels as (name, ms, calls))."""
@@ -84,7 +126,41 @@ def profile_step(env, state, action):
                                  e.count) for e in top]
 
 
+def compare_parent(path, env, state, gen, args, kw, ours, few):
+  """Time the kernel of the checkout at `path` against this one in turns
+  (parent, this, this, parent): per launch on the main path's inputs (and
+  at one block per SM), and per control step with each kernel swapped
+  into the main path."""
+  from myosuite_tpu_torch.physics import newton_kernel as nk
+  parent = load_parent(path)
+  plib = parent.load(parent.build()[0])
+  phase_split(f"parent kernel, batch {BATCH}",
+              parent.phase_cycles(*args, **kw), parent.PHASES)
+  phase_split(f"parent kernel, batch {few[0].shape[0]}",
+              parent.phase_cycles(*few, **kw), parent.PHASES)
+  per_sm, epb = parent.occupancy(args[1].shape[2], args[1].shape[1], plib)
+  print(f"  parent occupancy: {per_sm} blocks of {epb} envs per SM")
+  libs = {"parent": plib, "this": nk._library()}
+  nk._lib = plib
+  same = all(torch.equal(a, b) for a, b in zip(nk.newton_solve(*args, **kw),
+                                               ours))
+  print(f"  parent kernel bit-equal to this one on the hand: {same}")
+  for who in ("parent", "this", "this", "parent"):
+    nk._lib = libs[who]
+    ms = cuda_ms(lambda: nk.newton_solve(*args, **kw), 50)
+    ms_few = cuda_ms(lambda: nk.newton_solve(*few, **kw), 50)
+    control_steps(env, state, gen, 1)
+    step_ms, state = control_steps(env, state, gen, STEPS)
+    print(f"  turn {who}: {ms:.4f} ms per launch ({ms_few:.4f} at batch "
+          f"{few[0].shape[0]}), {step_ms:.2f} ms per control step")
+  nk._lib = libs["this"]
+
+
 def main():
+  parser = argparse.ArgumentParser()
+  parser.add_argument("--parent", help="checkout whose Newton kernel to "
+                      "time against this one in turns")
+  opts = parser.parse_args()
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA card", file=sys.stderr)
     return 2
@@ -101,21 +177,28 @@ def main():
         f"matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}")
 
-  # 1. build
-  path, seconds, log = nk.build(force=True)
-  print(f"phase 1 build: {nk.SOURCE} -> {path} in {seconds:.1f} s")
+  # 1. build: the main path's library and the phase-clock one, at once
+  from concurrent.futures import ThreadPoolExecutor
+  with ThreadPoolExecutor(2) as pool:
+    builds = [pool.submit(nk.build, True),
+              pool.submit(nk.build, True, ("NEWTON_PHASE_CLOCKS",))]
+    (path, seconds, log), (phase_path, phase_s, _) = [
+        b.result() for b in builds]
+  print(f"phase 1 build: {nk.SOURCE} -> {path} in {seconds:.1f} s; "
+        f"phase-clock build {phase_path} in {phase_s:.1f} s")
   for line in log.splitlines():
-    if "registers" in line or "spill" in line or "smem" in line:
+    if "Compiling" in line or "registers" in line or "spill" in line:
       print("  ptxas:", line.strip())
 
   # 2. kernel against its plain version on synthetic systems
   print("phase 2 kernel vs plain version")
-  for batch in (5, 37):
-    rng = np.random.default_rng(batch)
-    args = [torch.from_numpy(np.stack(x)).to(dev) for x in zip(
-        *[nk.random_system(rng, 5, 9, 3) for _ in range(batch)])]
-    kw = dict(n_friction=3, iterations=6, ls_iterations=6)
-    compare(f"synthetic batch {batch}", nk.newton_solve(*args, **kw),
+  for seed, case in enumerate(nk.EDGE_CASES):
+    nv, nefc, nfr, limits, batch, non_pd = case
+    args = [a.to(dev) for a in nk.random_batch(seed, *case)]
+    kw = dict(n_friction=nfr, iterations=6, ls_iterations=6)
+    compare(f"nv {nv} nefc {nefc} friction {nfr} limits {limits} batch "
+            f"{batch}{' non-PD' if non_pd else ''}",
+            nk.newton_solve(*args, **kw),
             nk.newton_solve_reference(*args, **kw), TOL)
 
   # 3. the main path
@@ -178,6 +261,25 @@ def main():
         f"of {nefc} rows weighted at the solution), {nbytes:.3e} bytes; "
         f"bound {max(t_ops, t_bytes):.4f} ms by {t_ops:.4f} ms of operations "
         f"and {t_bytes:.4f} ms of bytes")
+  sms = torch.cuda.get_device_properties(0).multi_processor_count
+  per_sm, epb = nk.occupancy(nv, nefc)
+  blocks = -(-BATCH // epb)
+  print(f"  occupancy: {per_sm} blocks of {epb} envs per SM "
+        f"({per_sm * epb} warps), {blocks} blocks on {sms} SMs = "
+        f"{blocks / (per_sm * sms):.3f} waves at batch {BATCH}")
+  # the same inputs at one block per SM: a quarter of the warps compete for
+  # each scheduler, so the time falls as far as issue, not latency, bounds
+  few = [a[:sms * epb].contiguous() for a in args]
+  ms_few = cuda_ms(lambda: nk.newton_solve(*few, **kw), 50)
+  print(f"  at one block per SM (batch {sms * epb}): {ms_few:.4f} ms per "
+        f"launch, {ms / ms_few:.2f}x under batch {BATCH}")
+  phase_lib = nk.load(phase_path)
+  phase_split(f"this kernel, batch {BATCH}",
+              nk.phase_cycles(*args, **kw, lib=phase_lib), nk.PHASES)
+  phase_split(f"this kernel, batch {sms * epb}",
+              nk.phase_cycles(*few, **kw, lib=phase_lib), nk.PHASES)
+  if opts.parent:
+    compare_parent(opts.parent, env, state, gen, args, kw, ours, few)
 
   # 4. golden trajectory of the JAX package, replayed on the card
   from myosuite_tpu_torch.envs.registry import ASSETS

@@ -17,35 +17,51 @@
 // the square root and the factor's diagonal is s / sqrt(max(s, 1e-12)), so a
 // negative pivot gives a finite result where linalg.chol_factor gives NaN.
 //
-// What bounds it on an H100: FP32 arithmetic. At nv = nefc = 23 an env
-// needs ~1.7e5 flops per launch with every row weighted, ~1.3e5 with the
-// ~12 that the hand weights on the main path (newton_kernel.flops_per_env;
-// most in the iterations' J^T W J and Cholesky), against ~5.3 KB of device
-// traffic: 25-32 flops per byte, above the card's ~20 flops per byte FP32
-// ridge (67 TFLOP/s over 3.35 TB/s).
+// What bounds it on an H100. The function is FP32 arithmetic: at
+// nv = nefc = 23 ~1.3e5 operations per env against ~5.3 KB of device
+// traffic (newton_kernel.flops_per_env, bytes_per_env), above the card's
+// ~20 flops per byte FP32 ridge. The kernel runs far from that bound. One
+// warp per env walks long chains of dependent steps: every Cholesky step
+// waits for a shuffle, a correctly rounded square root, a division and a
+// round of broadcasts before the next pivot, every line-search step for
+// two warp sums and a division. With one block per SM (a quarter of the
+// warps) a launch takes more than half as long as with four, so those
+// chains, not instruction issue, set most of its time; four blocks of
+// 8 warps (64 registers at most) make batch 4096 one wave.
 //
-// The accept test evaluates the cost at the current point again, and each
-// iteration recomputes that point's J a - aref and qM (a - a_smooth), where
-// carrying them from the previous test would do. Carrying them was
-// measured 5% slower on an H100 (PERF.md) and raised the register count
-// from 56 to 96 or more. The likely cause: the two cost evaluations are
-// independent chains of shuffles that run interleaved, so dropping one
-// shortens no dependency chain.
+// Design: one warp per env, a few envs per block. Lane r owns element r of
+// every nv-vector, held in a register (so nv <= 32); dot products are
+// reduced with __shfl_xor_sync, whose butterfly gives every lane the same
+// sum, so the warp's branches on costs stay uniform. Inputs are
+// batch-first, so one env's (nv, nv) block is contiguous and a warp's
+// loads coalesce. What the design does to shorten and thin the chains:
+// - J x, qM x and the cost sums give each lane a row and read it 16 bytes
+//   at a time against the vector staged once in shared memory (rows of
+//   stride 4 x odd: no bank conflicts), not one shuffle per column.
+// - J^T W J and the Cholesky run on a register tile that keeps all 32
+//   lanes busy: lane (lr, lc) = (lane % 8, lane / 8) owns the entries
+//   (lr + 8 ii, lc + 4 jj), ii < TI, jj < 2 TI, of the matrix padded to
+//   8 TI rows (TI = ceil(nv / 8), a template parameter, so the tile is
+//   registers). J^T W J sums only the rows of nonzero weight, found 32 at a
+//   time with __ballot_sync: per row a lane loads 3 TI values of J and
+//   updates its tile, where one row per lane loaded three values per entry.
+//   J^T f likewise skips rows of zero force. A skipped row adds +-0 to a sum
+//   that starts at +0, which changes no bit of a finite sum.
+// - The Cholesky is right-looking on the tile: at step k the pivot and
+//   column k are broadcast by shuffles whose register indices are known at
+//   compile time, each lane divides once, and every lane updates its part
+//   of the trailing triangle; the forward substitution rides along. The
+//   factor goes to shared memory, packed by rows, for the backward sweep.
+// - Each iteration starts from the cost, qM (a - a_smooth) and J a - aref
+//   that the accept test computed for the point it took (two row buffers,
+//   swapped by index), so a Newton step evaluates one cost, not two, and
+//   no separate J a or qM a.
 //
-// Design: one warp per env, a few envs per block. Lane r owns row r of qM,
-// of the Hessian and of its in-place Cholesky factor (so nv <= 32), and
-// element r of every nv-vector, held in a register. Constraint rows are
-// looped in strides of 32 (nefc is unbounded). The env's matrices and row
-// vectors sit in dynamic shared memory with an odd row stride, so lane r
-// reading row r is bank-conflict free; vectors are broadcast with
-// __shfl_sync and dot products reduced with __shfl_xor_sync, whose
-// butterfly gives every lane the same sum, so the warp's branches on costs
-// stay uniform. Inputs are batch-first, so one env's (nv, nv) block is
-// contiguous and a warp's loads coalesce.
-//
-// Built with -fmad=false: the plain PyTorch version
-// (newton_kernel.newton_solve_reference) takes every sum in this file's
-// order and has no multiply-add, so the two agree to the last bit.
+// Every sum keeps the order of the plain PyTorch version
+// (newton_kernel.newton_solve_reference): dot products over k ascending,
+// J^T W J and J^T f over rows ascending, the Cholesky's subtractions over
+// k ascending, the cost sums over every row in the warp's butterfly order.
+// Built with -fmad=false, so the two agree to the last bit.
 
 #include <cuda_runtime.h>
 
@@ -55,231 +71,465 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr float kEps = 1e-12f;
 constexpr float kRidge = 1e-8f;
 
+// Phases of the solve timed by the NEWTON_PHASE_CLOCKS build (names in
+// newton_kernel.PHASES): lane 0 of each warp adds the clock64() cycles of
+// each phase to a counter in the env's shared memory (a global
+// read-modify-write would stall the warp on a device-memory load at every
+// stamp), and the counters go to cycles[env * kPhases + phase] at the end.
+// Off in the build the main path loads.
+constexpr int kPhases = 11;
+enum Phase { kStaging, kSmooth, kWarm, kForces, kHessian, kChol, kSolve,
+             kLineSearch, kAccept, kFinal, kEuler };
+#ifdef NEWTON_PHASE_CLOCKS
+constexpr int kPhaseFloats = kPhases;   // one 32-bit counter per phase
+#define PHASE(ph) phase_stamp(phase_acc, lane, &t_phase, ph)
+__device__ __forceinline__ void phase_stamp(unsigned* acc, int lane,
+                                            long long* t, int ph) {
+  __syncwarp();
+  const long long now = clock64();
+  if (lane == 0) acc[ph] += (unsigned)(now - *t);
+  *t = now;
+}
+#else
+constexpr int kPhaseFloats = 0;
+#define PHASE(ph) ((void)0)
+#endif
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
 
-struct Sys {
-  const float* M;   // qM, nv rows of stride ld
-  float* H;         // Hessian / factor workspace, same layout
-  const float* J;   // nefc rows of stride ld
-  const float* aref;
-  const float* rinv;
-  const float* floss;
-  const float* active;
-  float* jar;
-  float* jp;
-  float* frc;
-  float* wt;
-  int nv, ld, nefc, nfr;
-};
+// One env's shared memory, in floats: qM (nv rows) and J (nefc rows) of
+// stride ld, a multiple of 4 whose quotient is odd, so that a lane reading
+// its own row 16 bytes at a time meets no bank conflict (columns nv..ld are
+// 0); the staging slot xs (ld) of the vector those rows are multiplied by;
+// the Cholesky factor packed by rows (row r at r (r + 1) / 2); then eight
+// row vectors (J a - aref twice: the current point's and the candidate's).
+// Regions are offsets from one base, so the compiler keeps no pointer per
+// region.
+__host__ __device__ inline int row_stride(int nv) {
+  return 4 * (((nv + 3) / 4) | 1);
+}
+__host__ __device__ inline int tri(int r) { return r * (r + 1) / 2; }
 
-// lane r < nv: sum_k A[r, k] x_k, x distributed one element per lane
-__device__ float matvec(const float* A, int ld, int nv, float x, int lane) {
-  float s = 0.f;
-  for (int k = 0; k < nv; ++k) {
-    float xk = __shfl_sync(kFull, x, k);
-    if (lane < nv) s += A[lane * ld + k] * xk;
-  }
-  return s;
+__host__ __device__ inline int floats_per_env(int nv, int nefc) {
+  const int n = (nv + nefc + 1) * row_stride(nv) + tri(nv) + 8 * nefc +
+                kPhaseFloats;
+  return (n + 3) & ~3;   // keeps every env's base 16-byte aligned
 }
 
-// y_e = J_e . x for all rows (uniform loop so every lane joins the shuffles)
-__device__ void rows_dot(const Sys& s, float x, float* out, int lane) {
-  for (int e0 = 0; e0 < s.nefc; e0 += 32) {
-    int e = e0 + lane;
-    float acc = 0.f;
-    for (int k = 0; k < s.nv; ++k) {
-      float xk = __shfl_sync(kFull, x, k);
-      if (e < s.nefc) acc += s.J[e * s.ld + k] * xk;
-    }
-    if (e < s.nefc) out[e] = acc;
+struct Sys {
+  float* base;
+  int nv, ld, nefc, nfr;
+  __device__ __forceinline__ int nq() const { return (nv + 3) / 4; }
+  __device__ __forceinline__ float* M() const { return base; }
+  __device__ __forceinline__ float* J() const { return base + nv * ld; }
+  __device__ __forceinline__ float* xs() const {
+    return base + (nv + nefc) * ld;
   }
+  __device__ __forceinline__ float* H() const {
+    return base + (nv + nefc + 1) * ld;
+  }
+  __device__ __forceinline__ float* rows(int i) const {
+    return H() + tri(nv) + i * nefc;
+  }
+  __device__ __forceinline__ float* aref() const { return rows(0); }
+  __device__ __forceinline__ float* rinv() const { return rows(1); }
+  __device__ __forceinline__ float* floss() const { return rows(2); }
+  __device__ __forceinline__ float* active() const { return rows(3); }
+  __device__ __forceinline__ float* jar(int i) const { return rows(4 + i); }
+  __device__ __forceinline__ float* jp() const { return rows(6); }
+  __device__ __forceinline__ float* wt() const { return rows(7); }
+  __device__ __forceinline__ unsigned* phase_acc() const {
+    return reinterpret_cast<unsigned*>(rows(8));
+  }
+};
+
+// x (one element per lane) into the staging slot, zero past nv
+__device__ __forceinline__ void stage(const Sys& s, float x, int lane) {
+  __syncwarp();   // the last readers of the slot are done
+  if (lane < 4 * s.nq()) s.xs()[lane] = lane < s.nv ? x : 0.f;
   __syncwarp();
 }
 
-// lane r < nv: sum_e J[e, r] f_e
-__device__ float rows_t(const Sys& s, const float* f, int lane) {
+// sum_k row[k] xs[k] over k ascending, four at a time from 16-byte loads;
+// the terms past nv are 0 * 0, and a sum that starts at +0 never becomes
+// -0, so adding them changes no bit
+__device__ __forceinline__ float row_dot(const Sys& s, const float* row) {
+  const float4* r4 = reinterpret_cast<const float4*>(row);
+  const float4* x4 = reinterpret_cast<const float4*>(s.xs());
   float acc = 0.f;
-  if (lane < s.nv)
-    for (int e = 0; e < s.nefc; ++e) acc += s.J[e * s.ld + lane] * f[e];
+  for (int q = 0; q < s.nq(); ++q) {
+    const float4 a = r4[q], x = x4[q];
+    acc = acc + a.x * x.x;
+    acc = acc + a.y * x.y;
+    acc = acc + a.z * x.z;
+    acc = acc + a.w * x.w;
+  }
+  return acc;
+}
+
+// lane r < nv: sum_k qM[r, k] x_k, x distributed one element per lane
+__device__ __forceinline__ float matvec(const Sys& s, float x, int lane) {
+  stage(s, x, lane);
+  return lane < s.nv ? row_dot(s, s.M() + lane * s.ld) : 0.f;
+}
+
+// acc + sum_b J[e0 + b, r] f_b on lane r < nv, over the lanes b whose row
+// force f is nonzero, in ascending rows
+__device__ __forceinline__ float add_rows_t(const Sys& s, int e0, float f,
+                                            float acc, int lane) {
+  unsigned m = __ballot_sync(kFull, f != 0.f);
+  while (m) {
+    const int b = __ffs(m) - 1;
+    m &= m - 1;
+    const float fb = __shfl_sync(kFull, f, b);
+    if (lane < s.nv) acc += s.J()[(e0 + b) * s.ld + lane] * fb;
+  }
   return acc;
 }
 
 __device__ __forceinline__ void row_force(const Sys& s, int e, float jar,
                                           float* force, float* w) {
-  float ri = s.rinv[e];
+  float ri = s.rinv()[e];
   float quad_f = -jar * ri;
   if (e < s.nfr) {
-    float fl = s.floss[e];
+    float fl = s.floss()[e];
     *force = fminf(fmaxf(quad_f, -fl), fl);
     *w = fabsf(quad_f) < fl ? ri : 0.f;
   } else {
-    float on = (s.active[e] != 0.f && jar < 0.f) ? 1.f : 0.f;
+    float on = (s.active()[e] != 0.f && jar < 0.f) ? 1.f : 0.f;
     *force = on * quad_f;
     *w = on * ri;
   }
 }
 
 __device__ __forceinline__ float row_cost(const Sys& s, int e, float jar) {
-  float ri = s.rinv[e];
+  float ri = s.rinv()[e];
   float quad = 0.5f * jar * jar * ri;
   if (e < s.nfr) {
-    float fl = s.floss[e];
+    float fl = s.floss()[e];
     float band = fl / fmaxf(ri, kEps);
     return fabsf(jar) < band ? quad : fl * fabsf(jar) - 0.5f * fl * band;
   }
-  return (s.active[e] != 0.f && jar < 0.f) ? quad : 0.f;
+  return (s.active()[e] != 0.f && jar < 0.f) ? quad : 0.f;
 }
 
-// 0.5 (a - as)^T qM (a - as) + sum_e cost_e(J_e a - aref_e); same on all lanes
-__device__ float total_cost(const Sys& s, float a, float as, int lane) {
-  float da = a - as;
-  float mda = matvec(s.M, s.ld, s.nv, da, lane);
-  float quad = warp_sum(lane < s.nv ? da * mda : 0.f);
+// 0.5 (a - as)^T qM (a - as) + sum_e cost_e(J_e a - aref_e), the same on
+// all lanes; leaves qM (a - as) in mda (lane r) and J a - aref in jar, which
+// the next iteration starts from if the point is taken. The two warp sums
+// sit side by side so that their shuffle chains overlap.
+__device__ __forceinline__ float total_cost(const Sys& s, float a, float as,
+                                            int lane, float* jar,
+                                            float& mda) {
+  const float da = a - as;
+  mda = matvec(s, da, lane);
+  const float qpart = lane < s.nv ? da * mda : 0.f;
+  stage(s, a, lane);
   float c = 0.f;
-  for (int e0 = 0; e0 < s.nefc; e0 += 32) {
-    int e = e0 + lane;
-    float acc = 0.f;
-    for (int k = 0; k < s.nv; ++k) {
-      float ak = __shfl_sync(kFull, a, k);
-      if (e < s.nefc) acc += s.J[e * s.ld + k] * ak;
-    }
-    if (e < s.nefc) c += row_cost(s, e, acc - s.aref[e]);
+  for (int e = lane; e < s.nefc; e += 32) {
+    const float r = row_dot(s, s.J() + e * s.ld) - s.aref()[e];
+    jar[e] = r;
+    c += row_cost(s, e, r);
   }
-  return 0.5f * quad + warp_sum(c);
+  return 0.5f * warp_sum(qpart) + warp_sum(c);
 }
 
-// In-place left-looking Cholesky of the lower triangle of A; lane i owns
-// row i. Column j: s_i = A[i][j] - sum_{k<j} L[i][k] L[j][k] for i >= j,
-// then L[i][j] = s_i / sqrt(max(s_j, eps)).
-__device__ void chol(float* A, int ld, int nv, int lane) {
-  for (int j = 0; j < nv; ++j) {
-    float s = 0.f;
-    if (lane >= j && lane < nv) {
-      s = A[lane * ld + j];
-      for (int k = 0; k < j; ++k) s -= A[lane * ld + k] * A[j * ld + k];
-    }
-    float d = sqrtf(fmaxf(__shfl_sync(kFull, s, j), kEps));
-    if (lane >= j && lane < nv) A[lane * ld + j] = s / d;
-    __syncwarp();
+// ---- the register tile: lane (lr, lc) owns (lr + 8 ii, lc + 4 jj) ----
+// Entry blocks wholly above the diagonal (rows 8ii..8ii+7, columns
+// 4jj..4jj+3) are never read or written.
+__host__ __device__ constexpr bool lower(int ii, int jj) {
+  return 8 * ii + 7 >= 4 * jj;
+}
+
+// A = S[r][c], rows and columns past nv clamped to nv - 1 (padding that
+// no entry of the factor reads)
+template <int TI>
+__device__ __forceinline__ void tile_load(float (&A)[TI][2 * TI],
+                                          const float* S, int ld, int nv,
+                                          int lr, int lc) {
+#pragma unroll
+  for (int ii = 0; ii < TI; ++ii) {
+    const float* row = S + min(lr + 8 * ii, nv - 1) * ld;
+#pragma unroll
+    for (int jj = 0; jj < 2 * TI; ++jj)
+      if (lower(ii, jj)) A[ii][jj] = row[min(lc + 4 * jj, nv - 1)];
   }
 }
 
-// Solve (L L^T) x = b; b and x one element per lane.
-__device__ float chol_solve(const float* L, int ld, int nv, float b,
-                            int lane) {
-  float s = b;
-  for (int i = 0; i < nv; ++i) {           // L y = b
-    float yi = __shfl_sync(kFull, s, i) / L[i * ld + i];
-    if (lane == i) s = yi;
-    else if (lane > i && lane < nv) s -= L[lane * ld + i] * yi;
+// A = A + x_r on the diagonal and A + 0 elsewhere, as the plain version
+// adds a diagonal matrix (so -0 becomes +0 off the diagonal, as there)
+template <int TI>
+__device__ __forceinline__ void tile_add_diag(float (&A)[TI][2 * TI],
+                                              const float (&x)[TI], int lr,
+                                              int lc) {
+#pragma unroll
+  for (int ii = 0; ii < TI; ++ii)
+#pragma unroll
+    for (int jj = 0; jj < 2 * TI; ++jj)
+      if (lower(ii, jj))
+        A[ii][jj] = A[ii][jj] + (lr + 8 * ii == lc + 4 * jj ? x[ii] : 0.f);
+}
+
+// In-place right-looking Cholesky of the tile's lower triangle. Step k:
+// d = sqrt(max(S[k][k], eps)), L[i][k] = S[i][k] / d for i >= k, then
+// S[i][j] -= L[i][k] L[j][k] for j > k, so each entry subtracts over k
+// ascending. Column k lives in lanes lc = k % 4, at register column k / 4,
+// its row i in lane i % 8 + 8 lc at register row i / 8: it is gathered to
+// one row per lane (lane q holds row q), so each lane divides once, and
+// broadcast back to the tile by row (lane lr + 8 ii) and by column (lane
+// lc + 4 jj). Register indices must be compile-time constants, so the
+// loop over k / 4 is unrolled and the four steps inside it are not
+// (unrolling all of them measured slower: more code, more spills). The
+// forward substitution L y = b rides along: lane q holds b_q, and at step
+// k lane k divides by L[k][k] and the lanes below subtract L[q][k] y_k,
+// the order of the plain version's column sweep.
+template <int TI>
+__device__ __forceinline__ void tile_chol(float (&A)[TI][2 * TI], int nv,
+                                          int lr, int lc, float& b) {
+  constexpr int TJ = 2 * TI;
+  const int lane = lr + 8 * lc;
+#pragma unroll
+  for (int kj = 0; kj < TJ; ++kj) {
+#pragma unroll 1
+    for (int kc = 0; kc < 4 && 4 * kj + kc < nv; ++kc) {
+      const int k = 4 * kj + kc;
+      const float piv = __shfl_sync(kFull, A[kj >> 1][kj], (k & 7) + 8 * kc);
+      const float d = sqrtf(fmaxf(piv, kEps));
+      float sq = 0.f;   // S[q][k], q = lane; rows above k are not needed
+#pragma unroll
+      for (int ii = 0; ii < TI; ++ii)
+        if (8 * ii + 7 >= 4 * kj) {
+          const float v = __shfl_sync(kFull, A[ii][kj], lr + 8 * kc);
+          if (lc == ii) sq = v;
+        }
+      const float lq = sq / d;
+      float li[TI], lj[TJ];
+#pragma unroll
+      for (int ii = 0; ii < TI; ++ii)
+        if (8 * ii + 7 >= 4 * kj) {
+          li[ii] = __shfl_sync(kFull, lq, lr + 8 * ii);
+          if (lc == kc) A[ii][kj] = li[ii];
+        }
+#pragma unroll
+      for (int jj = kj; jj < TJ; ++jj)
+        lj[jj] = __shfl_sync(kFull, lq, lc + 4 * jj);
+      // after the broadcasts, so that their latency overlaps lane k's division
+      if (lane == k) b = b / lq;
+      const float yk = __shfl_sync(kFull, b, k);
+      if (lane > k) b = b - lq * yk;
+#pragma unroll
+      for (int ii = 0; ii < TI; ++ii)
+#pragma unroll
+        for (int jj = kj; jj < TJ; ++jj)
+          if (lower(ii, jj)) {
+            const float t = A[ii][jj] - li[ii] * lj[jj];
+            if (jj > kj || lc > kc) A[ii][jj] = t;
+          }
+    }
   }
-  for (int i = nv - 1; i >= 0; --i) {      // L^T x = y
-    float xi = __shfl_sync(kFull, s, i) / L[i * ld + i];
-    if (lane == i) s = xi;
-    else if (lane < i) s -= L[i * ld + lane] * xi;
+}
+
+// The tile's lower triangle (rows < nv) into H, packed by rows
+template <int TI>
+__device__ __forceinline__ void tile_store(const float (&A)[TI][2 * TI],
+                                           float* H, int nv, int lr, int lc) {
+#pragma unroll
+  for (int ii = 0; ii < TI; ++ii)
+#pragma unroll
+    for (int jj = 0; jj < 2 * TI; ++jj) {
+      const int r = lr + 8 * ii, c = lc + 4 * jj;
+      if (lower(ii, jj) && r < nv && c <= r) H[tri(r) + c] = A[ii][jj];
+    }
+}
+
+// Solve L^T x = y with L packed by rows in H; y and x one element per
+// lane.
+__device__ __forceinline__ float chol_back(const float* L, int nv, float y,
+                                           int lane) {
+  const float dg = lane < nv ? L[tri(lane) + lane] : 1.f;
+  float s = y;
+  for (int i = nv - 1; i >= 0; --i) {
+    if (lane == i) s = s / dg;
+    const float xi = __shfl_sync(kFull, s, i);
+    if (lane < i) s -= L[tri(i) + lane] * xi;
   }
   return lane < nv ? s : 0.f;
 }
 
-__host__ __device__ inline int row_stride(int nv) { return nv | 1; }
-
-__host__ __device__ inline int floats_per_env(int nv, int nefc) {
-  return 2 * nv * row_stride(nv) + nefc * row_stride(nv) + 8 * nefc;
+// Factor the tile, with the forward substitution of b (one element per
+// lane, which becomes y), and leave the factor in H.
+template <int TI>
+__device__ __forceinline__ void tile_factor(float (&A)[TI][2 * TI], float* H,
+                                            int nv, int lr, int lc,
+                                            float& b) {
+  tile_chol<TI>(A, nv, lr, lc, b);
+  __syncwarp();   // the last solve has read H
+  tile_store<TI>(A, H, nv, lr, lc);
+  __syncwarp();
 }
 
-__global__ void newton_solve_kernel(
+// A^-1 b for the tile A and b one element per lane
+template <int TI>
+__device__ __forceinline__ float tile_solve(float (&A)[TI][2 * TI], float* H,
+                                            int nv, int lr, int lc,
+                                            float b) {
+  tile_factor<TI>(A, H, nv, lr, lc, b);
+  return chol_back(H, nv, b, lr + 8 * lc);
+}
+
+// TI = ceil(nv / 8) rows of tile per lane. At TI <= 3 (nv <= 24) the
+// launch bounds cap registers at 64, so 4 blocks of 8 warps share an SM:
+// batch 4096 is one wave on 132 SMs.
+template <int TI, int MIN_BLOCKS>
+__global__ void __launch_bounds__(256, MIN_BLOCKS) newton_solve_kernel(
     const float* __restrict__ qM, const float* __restrict__ J,
     const float* __restrict__ aref, const float* __restrict__ R,
     const float* __restrict__ floss, const float* __restrict__ active,
     const float* __restrict__ warm, const float* __restrict__ qfs,
     const float* __restrict__ damph, float* __restrict__ qacc,
     float* __restrict__ qfrc, float* __restrict__ force,
-    float* __restrict__ asmooth, float* __restrict__ qacc_euler, int batch,
-    int nv, int nefc, int nfr, int iterations, int ls_iterations) {
-  extern __shared__ float smem[];
+    float* __restrict__ asmooth, float* __restrict__ qacc_euler,
+    unsigned long long* __restrict__ cycles, int batch, int nv, int nefc,
+    int nfr, int iterations, int ls_iterations) {
+  constexpr int TJ = 2 * TI;
+  extern __shared__ float4 smem4[];   // float4: 16-byte aligned
+  float* smem = reinterpret_cast<float*>(smem4);
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int lr = lane & 7, lc = lane >> 3;
   const long env = (long)blockIdx.x * warps + warp;
   if (env >= batch) return;  // whole warp leaves; no block-wide barriers
-
   const int ld = row_stride(nv);
-  float* base = smem + (long)warp * floats_per_env(nv, nefc);
-  float* M = base;
-  float* H = M + nv * ld;
-  float* Jm = H + nv * ld;
-  float* rv = Jm + nefc * ld;
-  Sys s{M, H, Jm, rv, rv + nefc, rv + 2 * nefc, rv + 3 * nefc,
-        rv + 4 * nefc, rv + 5 * nefc, rv + 6 * nefc, rv + 7 * nefc,
-        nv, ld, nefc, nfr};
+  const Sys s{smem + warp * floats_per_env(nv, nefc), nv, ld, nefc, nfr};
+#ifdef NEWTON_PHASE_CLOCKS
+  unsigned* phase_acc = s.phase_acc();
+  if (lane < kPhases) phase_acc[lane] = 0u;
+  __syncwarp();
+  long long t_phase = clock64();
+#endif
+  float* M = s.M();
 
   const float* gM = qM + env * nv * nv;
   for (int i = lane; i < nv * nv; i += 32) M[(i / nv) * ld + i % nv] = gM[i];
   const float* gJ = J + env * nefc * nv;
   for (int i = lane; i < nefc * nv; i += 32)
-    Jm[(i / nv) * ld + i % nv] = gJ[i];
+    s.J()[(i / nv) * ld + i % nv] = gJ[i];
+  const int pad = 4 * s.nq() - nv;   // zero columns read by row_dot
+  for (int i = lane; i < (nv + nefc) * pad; i += 32)
+    M[(i / pad) * ld + nv + i % pad] = 0.f;
   const long r0 = env * nefc;
   for (int e = lane; e < nefc; e += 32) {
-    rv[e] = aref[r0 + e];
-    rv[nefc + e] = 1.f / R[r0 + e];
-    rv[2 * nefc + e] = floss[r0 + e];
-    rv[3 * nefc + e] = active[r0 + e];
+    s.aref()[e] = aref[r0 + e];
+    s.rinv()[e] = 1.f / R[r0 + e];
+    s.floss()[e] = floss[r0 + e];
+    s.active()[e] = active[r0 + e];
   }
   const long v0 = env * nv;
-  const float qfs_r = lane < nv ? qfs[v0 + lane] : 0.f;
-  const float warm_r = lane < nv ? warm[v0 + lane] : 0.f;
-  const float damph_r = lane < nv ? damph[v0 + lane] : 0.f;
   __syncwarp();
+  PHASE(kStaging);
+
+  float A[TI][TJ];
 
   // 1. a_smooth
-  for (int i = lane; i < nv * ld; i += 32) H[i] = M[i];
-  __syncwarp();
-  chol(H, ld, nv, lane);
-  const float as = chol_solve(H, ld, nv, qfs_r, lane);
+  tile_load<TI>(A, M, ld, nv, lr, lc);
+  const float as = tile_solve<TI>(A, s.H(), nv, lr, lc,
+                                 lane < nv ? qfs[v0 + lane] : 0.f);
+  PHASE(kSmooth);
 
-  // 2. warm start
-  float a = total_cost(s, warm_r, as, lane) < total_cost(s, as, as, lane)
-                ? warm_r : as;
+  // 2. warm start. The current point a comes with its cost, qM (a - as)
+  // and J a - aref (in buffer s.jar(cur)), from the test that took it.
+  const float warm_r = lane < nv ? warm[v0 + lane] : 0.f;
+  float mda, mda_s;
+  float cost = total_cost(s, warm_r, as, lane, s.jar(0), mda);
+  const float cost_s = total_cost(s, as, as, lane, s.jar(1), mda_s);
+  float a = warm_r;
+  int cur = 0;
+  if (!(cost < cost_s)) {
+    a = as;
+    cost = cost_s;
+    mda = mda_s;
+    cur = 1;
+  }
+  PHASE(kWarm);
 
   // 3. Newton iterations
   for (int it = 0; it < iterations; ++it) {
-    rows_dot(s, a, s.jar, lane);
-    for (int e = lane; e < nefc; e += 32) {
-      s.jar[e] -= s.aref[e];
-      row_force(s, e, s.jar[e], &s.frc[e], &s.wt[e]);
+    const float* jar = s.jar(cur);
+    float jtf = 0.f;
+    for (int e0 = 0; e0 < nefc; e0 += 32) {
+      const int e = e0 + lane;
+      float f = 0.f, w = 0.f;
+      if (e < nefc) {
+        row_force(s, e, jar[e], &f, &w);
+        s.wt()[e] = w;
+      }
+      jtf = add_rows_t(s, e0, f, jtf, lane);
     }
-    __syncwarp();
-    const float mda = matvec(M, ld, nv, a - as, lane);
-    const float grad = mda - rows_t(s, s.frc, lane);
-    if (lane < nv) {   // lower triangle: chol reads no other entry
-      for (int c = 0; c <= lane; ++c) {
-        float h = 0.f;
-        for (int e = 0; e < nefc; ++e)
-          h += Jm[e * ld + lane] * s.wt[e] * Jm[e * ld + c];
-        h += M[lane * ld + c];
-        if (c == lane) h += kRidge;
-        H[lane * ld + c] = h;
+    const float grad = mda - jtf;
+    PHASE(kForces);
+
+    // H = (J^T W J + qM) + 1e-8 I over the rows of nonzero weight
+#pragma unroll
+    for (int ii = 0; ii < TI; ++ii)
+#pragma unroll
+      for (int jj = 0; jj < TJ; ++jj) A[ii][jj] = 0.f;
+    for (int e0 = 0; e0 < nefc; e0 += 32) {
+      const float w = e0 + lane < nefc ? s.wt()[e0 + lane] : 0.f;
+      unsigned m = __ballot_sync(kFull, w != 0.f);
+      while (m) {
+        const int b = __ffs(m) - 1;
+        m &= m - 1;
+        const float wb = __shfl_sync(kFull, w, b);
+        const float* Je = s.J() + (e0 + b) * ld;
+        float jr[TI], jc[TJ];
+#pragma unroll
+        for (int ii = 0; ii < TI; ++ii)
+          jr[ii] = Je[min(lr + 8 * ii, nv - 1)] * wb;
+#pragma unroll
+        for (int jj = 0; jj < TJ; ++jj) jc[jj] = Je[min(lc + 4 * jj, nv - 1)];
+#pragma unroll
+        for (int ii = 0; ii < TI; ++ii)
+#pragma unroll
+          for (int jj = 0; jj < TJ; ++jj)
+            if (lower(ii, jj)) A[ii][jj] = A[ii][jj] + jr[ii] * jc[jj];
       }
     }
-    __syncwarp();
-    chol(H, ld, nv, lane);
-    const float p = -chol_solve(H, ld, nv, grad, lane);
+    {
+      float Mt[TI][TJ], ridge[TI];
+      tile_load<TI>(Mt, M, ld, nv, lr, lc);
+#pragma unroll
+      for (int ii = 0; ii < TI; ++ii) {
+        ridge[ii] = kRidge;
+#pragma unroll
+        for (int jj = 0; jj < TJ; ++jj)
+          if (lower(ii, jj)) A[ii][jj] = A[ii][jj] + Mt[ii][jj];
+      }
+      tile_add_diag<TI>(A, ridge, lr, lc);
+    }
+    PHASE(kHessian);
+    float y = grad;
+    tile_factor<TI>(A, s.H(), nv, lr, lc, y);
+    PHASE(kChol);
+    const float p = -chol_back(s.H(), nv, y, lane);
+    PHASE(kSolve);
 
-    rows_dot(s, p, s.jp, lane);
+    stage(s, p, lane);   // J p and qM p from one staging of p
+    for (int e = lane; e < nefc; e += 32)
+      s.jp()[e] = row_dot(s, s.J() + e * ld);
+    const float mp = lane < nv ? row_dot(s, M + lane * ld) : 0.f;
     const float g0 = warp_sum(lane < nv ? p * mda : 0.f);
-    const float mp = matvec(M, ld, nv, p, lane);
     const float pmp = warp_sum(lane < nv ? p * mp : 0.f);
     float alpha = 1.f;
     for (int ls = 0; ls < ls_iterations; ++ls) {
       float sf = 0.f, sw = 0.f;
       for (int e = lane; e < nefc; e += 32) {
         float f, w;
-        const float jpe = s.jp[e];
-        row_force(s, e, s.jar[e] + alpha * jpe, &f, &w);
+        const float jpe = s.jp()[e];
+        row_force(s, e, jar[e] + alpha * jpe, &f, &w);
         sf += f * jpe;
         sw += w * jpe * jpe;
       }
@@ -288,34 +538,70 @@ __global__ void newton_solve_kernel(
       alpha = fminf(fmaxf(alpha - dphi / fmaxf(ddphi, kEps), 0.f), 4.f);
     }
     const float a_new = a + alpha * p;
-    if (total_cost(s, a_new, as, lane) <= total_cost(s, a, as, lane))
+    PHASE(kLineSearch);
+    float mda_new;
+    const float cost_new =
+        total_cost(s, a_new, as, lane, s.jar(cur ^ 1), mda_new);
+    if (cost_new <= cost) {
       a = a_new;
+      cost = cost_new;
+      mda = mda_new;
+      cur ^= 1;
+    }
+    PHASE(kAccept);
   }
 
   // 4. final forces and qfrc
-  rows_dot(s, a, s.jar, lane);
-  for (int e = lane; e < nefc; e += 32) {
-    float f, w;
-    row_force(s, e, s.jar[e] - s.aref[e], &f, &w);
-    s.frc[e] = f;
-    force[r0 + e] = f;
+  const float* jar = s.jar(cur);
+  float qfrc_r = 0.f;
+  for (int e0 = 0; e0 < nefc; e0 += 32) {
+    const int e = e0 + lane;
+    float f = 0.f, w;
+    if (e < nefc) {
+      row_force(s, e, jar[e], &f, &w);
+      force[r0 + e] = f;
+    }
+    qfrc_r = add_rows_t(s, e0, f, qfrc_r, lane);
   }
-  __syncwarp();
-  const float qfrc_r = rows_t(s, s.frc, lane);
+  PHASE(kFinal);
 
   // 5. implicit-damping Euler solve
-  for (int i = lane; i < nv * ld; i += 32) H[i] = M[i];
-  __syncwarp();
-  if (lane < nv) H[lane * ld + lane] += damph_r;
-  __syncwarp();
-  chol(H, ld, nv, lane);
-  const float qe = chol_solve(H, ld, nv, qfs_r + qfrc_r, lane);
+  float dr[TI];
+  const float damph_r = lane < nv ? damph[v0 + lane] : 0.f;
+#pragma unroll
+  for (int ii = 0; ii < TI; ++ii)
+    dr[ii] = __shfl_sync(kFull, damph_r, lr + 8 * ii);
+  tile_load<TI>(A, M, ld, nv, lr, lc);
+  tile_add_diag<TI>(A, dr, lr, lc);
+  const float qe = tile_solve<TI>(
+      A, s.H(), nv, lr, lc, (lane < nv ? qfs[v0 + lane] : 0.f) + qfrc_r);
 
   if (lane < nv) {
     qacc[v0 + lane] = a;
     qfrc[v0 + lane] = qfrc_r;
     asmooth[v0 + lane] = as;
     qacc_euler[v0 + lane] = qe;
+  }
+  PHASE(kEuler);
+#ifdef NEWTON_PHASE_CLOCKS
+  __syncwarp();
+  if (lane < kPhases) cycles[env * kPhases + lane] = phase_acc[lane];
+#endif
+}
+
+using Kernel = void (*)(const float*, const float*, const float*,
+                        const float*, const float*, const float*,
+                        const float*, const float*, const float*, float*,
+                        float*, float*, float*, float*, unsigned long long*,
+                        int, int, int, int, int, int);
+
+// The instantiation for nv (1..32): TI = ceil(nv / 8)
+Kernel kernel_for(int nv) {
+  switch ((nv + 7) / 8) {
+    case 1: return newton_solve_kernel<1, 4>;
+    case 2: return newton_solve_kernel<2, 4>;
+    case 3: return newton_solve_kernel<3, 4>;
+    default: return newton_solve_kernel<4, 2>;
   }
 }
 
@@ -328,37 +614,56 @@ int newton_solve_smem_per_env(int nv, int nefc) {
   return (int)sizeof(float) * floats_per_env(nv, nefc);
 }
 
+// Blocks of `envs_per_block` envs that fit on one SM at once, or a
+// negative CUDA error.
+int newton_solve_occupancy(int nv, int nefc, int envs_per_block) {
+  if (nv < 1 || nv > 32 || nefc < 0 || envs_per_block < 1 ||
+      envs_per_block > 8)
+    return -(int)cudaErrorInvalidValue;
+  const Kernel kernel = kernel_for(nv);
+  const int smem = envs_per_block * newton_solve_smem_per_env(nv, nefc);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel, 32 * envs_per_block, smem);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
 // All pointers are device pointers to contiguous float32, batch-first:
 // qM (B,nv,nv), J (B,nefc,nv), aref/R/floss/active (B,nefc),
 // warm/qfrc_smooth/damph (B,nv); outputs qacc, qfrc, asmooth, qacc_euler
-// (B,nv) and force (B,nefc). Launches on `stream`; returns
-// cudaGetLastError() (0 on success).
+// (B,nv) and force (B,nefc). `cycles` is null, or in the
+// NEWTON_PHASE_CLOCKS build a zeroed (B, kPhases) uint64 buffer for the
+// phase clocks. At most 8 envs per block (the launch bounds' 256 threads).
+// Launches on `stream`; returns cudaGetLastError() (0 on success).
 int newton_solve_f32(const void* qM, const void* J, const void* aref,
                      const void* R, const void* floss, const void* active,
                      const void* warm, const void* qfrc_smooth,
                      const void* damph, void* qacc, void* qfrc, void* force,
                      void* asmooth, void* qacc_euler, int batch, int nv,
                      int nefc, int n_friction, int iterations,
-                     int ls_iterations, int envs_per_block, void* stream) {
+                     int ls_iterations, int envs_per_block, void* cycles,
+                     void* stream) {
   if (batch <= 0) return 0;
   if (nv < 1 || nv > 32 || nefc < 0 || envs_per_block < 1 ||
-      envs_per_block > 32)
+      envs_per_block > 8)
     return (int)cudaErrorInvalidValue;
+  const Kernel kernel = kernel_for(nv);
   const size_t smem =
       (size_t)envs_per_block * newton_solve_smem_per_env(nv, nefc);
   cudaError_t err = cudaFuncSetAttribute(
-      newton_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (batch + envs_per_block - 1) / envs_per_block;
-  newton_solve_kernel<<<blocks, 32 * envs_per_block, smem,
-                        (cudaStream_t)stream>>>(
+  kernel<<<blocks, 32 * envs_per_block, smem, (cudaStream_t)stream>>>(
       (const float*)qM, (const float*)J, (const float*)aref,
       (const float*)R, (const float*)floss, (const float*)active,
       (const float*)warm, (const float*)qfrc_smooth, (const float*)damph,
       (float*)qacc, (float*)qfrc, (float*)force, (float*)asmooth,
-      (float*)qacc_euler, batch, nv, nefc, n_friction, iterations,
-      ls_iterations);
+      (float*)qacc_euler, (unsigned long long*)cycles, batch, nv, nefc,
+      n_friction, iterations, ls_iterations);
   return (int)cudaGetLastError();
 }
 

@@ -3,10 +3,13 @@
 The CUDA kernel (`csrc/newton_solver.cu`) replaces the JAX package's Pallas
 TPU kernel `pallas_solver.py::_solver_kernel`: one launch per substep does
 the smooth solve, the whole Newton constraint solve and the
-implicit-damping Euler solve for every env. It is bound by FP32
+implicit-damping Euler solve for every env. Its function is FP32
 arithmetic (25-32 flops per byte of device traffic at nv = nefc = 23,
-above the H100's ~20 flops per byte FP32 ridge); see the source for its
-design.
+above the H100's ~20 flops per byte FP32 ridge); the kernel is held back
+by each warp's chain of dependent shuffles, square roots and divisions,
+which its design (a register tile over all 32 lanes for J^T W J and the
+Cholesky, only the rows of nonzero weight or force, the accepted point
+carried between iterations) keeps short; see the source.
 
 `newton_solve` dispatches on the device of its inputs: CUDA tensors go to
 the kernel (or raise), CPU tensors to `newton_solve_reference`, the plain
@@ -70,12 +73,16 @@ def _nvcc() -> str:
   return path
 
 
-def build(force: bool = False) -> Tuple[str, float, str]:
+def build(force: bool = False, defines: Tuple[str, ...] = ()
+          ) -> Tuple[str, float, str]:
   """Compile the kernel if needed; returns (library path, build seconds,
-  the compiler's output: ptxas register and shared-memory report)."""
+  the compiler's output: ptxas register and shared-memory report).
+  `defines` are preprocessor macros, e.g. ("NEWTON_PHASE_CLOCKS",) for the
+  phase-clock build, which goes to a library of its own."""
   with open(SOURCE, "rb") as f:
     src = f.read()
-  key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+  flags = NVCC_FLAGS + tuple("-D" + d for d in defines)
+  key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
   lib = os.path.join(BUILD_DIR, f"newton_solver_{key}.so")
   if os.path.exists(lib) and not force:
     return lib, 0.0, ""
@@ -83,7 +90,7 @@ def build(force: bool = False) -> Tuple[str, float, str]:
   fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
   os.close(fd)
   t0 = time.perf_counter()
-  proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+  proc = subprocess.run([_nvcc(), *flags, "-o", tmp, SOURCE],
                         capture_output=True, text=True)
   seconds = time.perf_counter() - t0
   if proc.returncode != 0:
@@ -93,18 +100,24 @@ def build(force: bool = False) -> Tuple[str, float, str]:
   return lib, seconds, proc.stdout + proc.stderr
 
 
+def load(path: str):
+  """The built library at `path`, its C interface declared for ctypes."""
+  lib = ctypes.CDLL(path)
+  ptr = ctypes.c_void_p
+  i32 = ctypes.c_int
+  lib.newton_solve_f32.argtypes = [ptr] * 14 + [i32] * 7 + [ptr, ptr]
+  lib.newton_solve_f32.restype = i32
+  lib.newton_solve_smem_per_env.argtypes = [i32, i32]
+  lib.newton_solve_smem_per_env.restype = i32
+  lib.newton_solve_occupancy.argtypes = [i32, i32, i32]
+  lib.newton_solve_occupancy.restype = i32
+  return lib
+
+
 def _library():
   global _lib
   if _lib is None:
-    path, _, _ = build()
-    lib = ctypes.CDLL(path)
-    ptr = ctypes.c_void_p
-    i32 = ctypes.c_int
-    lib.newton_solve_f32.argtypes = [ptr] * 14 + [i32] * 7 + [ptr]
-    lib.newton_solve_f32.restype = i32
-    lib.newton_solve_smem_per_env.argtypes = [i32, i32]
-    lib.newton_solve_smem_per_env.restype = i32
-    _lib = lib
+    _lib = load(build()[0])
   return _lib
 
 
@@ -118,8 +131,7 @@ def flops_per_env(nv: int, nefc: int, iterations: int, ls_iterations: int,
   is symmetric, so J^T W J counts its lower triangle, n_weighted nv
   (nv + 1). The warm start evaluates two costs; each iteration one, at the
   new point, since the current point's cost, J a - aref and
-  qM (a - a_smooth) are known from the test that accepted it (the kernel
-  recomputes them, which measured faster; see its source)."""
+  qM (a - a_smooth) are known from the test that accepted it."""
   chol = nv ** 3 // 3
   solve = 2 * nv * nv
   matvec = 2 * nv * nv
@@ -171,6 +183,36 @@ def random_system(rng, nv: int, nefc: int, n_friction: int):
   return qM, J, aref, R, floss, active, warm, qfrc_smooth, damph
 
 
+# Synthetic systems that hold the kernel against its plain version at its
+# edges, as (nv, nefc, n_friction, limits, batch, non_pd): every lane of
+# the tile (nv 32), more rows than a warp (nefc 70), friction rows or
+# none, every limit row active or none, batches that are not a multiple of
+# the envs per block, and a mass matrix with a negative pivot.
+EDGE_CASES = ((5, 9, 3, "some", 5, False), (5, 9, 3, "some", 37, False),
+              (5, 70, 3, "some", 37, False), (23, 23, 0, "all", 37, False),
+              (23, 23, 0, "none", 37, False), (23, 70, 3, "some", 37, False),
+              (32, 9, 0, "some", 37, False), (32, 23, 3, "some", 37, False),
+              (32, 70, 3, "all", 37, False), (23, 9, 3, "some", 37, True))
+
+
+def random_batch(seed: int, nv: int, nefc: int, n_friction: int,
+                 limits: str, batch: int, non_pd: bool):
+  """`batch` systems of `random_system`, stacked as CPU tensors in the
+  order of `newton_solve`'s arguments (one row of EDGE_CASES after the
+  seed). `limits`: "some" keeps random_system's ~70% active limit rows,
+  "all" or "none" sets them all; `non_pd` gives env 0 a diagonal mass
+  matrix with a negative pivot."""
+  rng = np.random.default_rng(seed)
+  args = [np.stack(x) for x in zip(*[random_system(rng, nv, nefc, n_friction)
+                                     for _ in range(batch)])]
+  if limits != "some":
+    args[5][:, n_friction:] = 1.0 if limits == "all" else 0.0
+  if non_pd:
+    args[0][0] = np.diag(np.linspace(1.0, 3.0, nv)).astype(np.float32)
+    args[0][0, nv // 2, nv // 2] = -2.0
+  return [torch.from_numpy(a) for a in args]
+
+
 def _check(qM, J, aref, R, floss, active, warm, qfrc_smooth, damph):
   if qM.dim() != 3 or qM.shape[1] != qM.shape[2]:
     raise ValueError(f"qM must be (B, nv, nv), got {tuple(qM.shape)}")
@@ -201,13 +243,30 @@ def newton_solve(qM, J, aref, R, floss, active, warm, qfrc_smooth, damph,
   qfrc_constraint, efc_force, qacc_smooth, qacc_euler).
   """
   global launches
-  B, nv, nefc = _check(qM, J, aref, R, floss, active, warm, qfrc_smooth,
-                       damph)
   args = (qM, J, aref, R, floss, active, warm, qfrc_smooth, damph)
+  kw = dict(n_friction=n_friction, iterations=iterations,
+            ls_iterations=ls_iterations)
+  _check(*args)
   if qM.device.type == "cpu":
-    return newton_solve_reference(*args, n_friction=n_friction,
-                                  iterations=iterations,
-                                  ls_iterations=ls_iterations)
+    return newton_solve_reference(*args, **kw)
+  outs = _launch(_library(), args, None, **kw)
+  launches += 1
+  return outs
+
+
+def _envs_per_block(lib, nv: int, nefc: int) -> int:
+  smem = lib.newton_solve_smem_per_env(nv, nefc)
+  if smem > _SMEM_LIMIT:
+    raise ValueError(f"nv={nv}, nefc={nefc} needs {smem} bytes of shared "
+                     f"memory per env; a block may use {_SMEM_LIMIT}")
+  return min(ENVS_PER_BLOCK, _SMEM_LIMIT // smem)
+
+
+def _launch(lib, args, cycles, n_friction, iterations, ls_iterations):
+  """One launch of `lib`'s kernel on CUDA tensors; `cycles` is None or the
+  phase-clock buffer."""
+  qM, J, aref, warm = args[0], args[1], args[2], args[6]
+  B, nv, nefc = qM.shape[0], qM.shape[1], J.shape[1]
   if qM.device.type != "cuda":
     raise ValueError(f"no Newton solver for device {qM.device}")
   for a in args:
@@ -215,12 +274,7 @@ def newton_solve(qM, J, aref, R, floss, active, warm, qfrc_smooth, damph,
         a.is_contiguous():
       raise ValueError("the Newton kernel takes contiguous float32 tensors "
                        f"on {qM.device}")
-  lib = _library()
-  smem = lib.newton_solve_smem_per_env(nv, nefc)
-  if smem > _SMEM_LIMIT:
-    raise ValueError(f"nv={nv}, nefc={nefc} needs {smem} bytes of shared "
-                     f"memory per env; a block may use {_SMEM_LIMIT}")
-  epb = min(ENVS_PER_BLOCK, _SMEM_LIMIT // smem)
+  epb = _envs_per_block(lib, nv, nefc)
   outs = (torch.empty_like(warm), torch.empty_like(warm),
           torch.empty_like(aref), torch.empty_like(warm),
           torch.empty_like(warm))
@@ -230,11 +284,43 @@ def newton_solve(qM, J, aref, R, floss, active, warm, qfrc_smooth, damph,
       qacc.data_ptr(), qfrc.data_ptr(), force.data_ptr(),
       asmooth.data_ptr(), qacc_euler.data_ptr(), B, nv, nefc,
       int(n_friction), int(iterations), int(ls_iterations), epb,
+      None if cycles is None else cycles.data_ptr(),
       torch.cuda.current_stream(qM.device).cuda_stream)
   if err != 0:
     raise RuntimeError(f"newton_solve_f32 launch failed: CUDA error {err}")
-  launches += 1
-  return qacc, qfrc, force, asmooth, qacc_euler
+  return outs
+
+
+def occupancy(nv: int, nefc: int, lib=None) -> Tuple[int, int]:
+  """(blocks per SM, envs per block) of the kernel at these sizes, from
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+  lib = lib or _library()
+  epb = _envs_per_block(lib, nv, nefc)
+  blocks = lib.newton_solve_occupancy(nv, nefc, epb)
+  if blocks <= 0:
+    raise RuntimeError(f"newton_solve_occupancy failed: CUDA error "
+                       f"{-blocks}")
+  return blocks, epb
+
+
+# the phases of the NEWTON_PHASE_CLOCKS build, in the order of its clocks
+PHASES = ("staging", "smooth solve", "warm start", "forces + grad",
+          "Hessian", "Cholesky", "solve", "line search", "accept costs",
+          "final forces", "Euler solve")
+
+
+def phase_cycles(*args, n_friction: int, iterations: int,
+                 ls_iterations: int, lib=None) -> torch.Tensor:
+  """Clock cycles per env and phase (B, len(PHASES)) of one launch of the
+  phase-clock build of the kernel (built on first use, never the library
+  `newton_solve` launches; not counted in `launches`)."""
+  _check(*args)
+  lib = lib or load(build(defines=("NEWTON_PHASE_CLOCKS",))[0])
+  cycles = torch.zeros(args[0].shape[0], len(PHASES), dtype=torch.int64,
+                       device=args[0].device)
+  _launch(lib, args, cycles, n_friction=n_friction, iterations=iterations,
+          ls_iterations=ls_iterations)
+  return cycles
 
 
 # ---------------------------------------------------------------------------
@@ -287,9 +373,9 @@ def _mtv(A: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
 
 def _chol_factor(M: torch.Tensor) -> torch.Tensor:
   """Cholesky with every pivot clamped at 1e-12; the factor's diagonal is
-  s / sqrt(max(s, 1e-12)) (Pallas kernel semantics). Right-looking, which
-  subtracts L_ik L_jk from entry (i, j) in the same k order as the kernel's
-  left-looking loop."""
+  s / sqrt(max(s, 1e-12)) (Pallas kernel semantics). Right-looking, like
+  the kernel's register tile: entry (i, j) subtracts L_ik L_jk over k
+  ascending."""
   n = M.shape[-1]
   S = M.clone()
   L = torch.zeros_like(M)
@@ -356,8 +442,7 @@ def newton_solve_reference(qM, J, aref, R, floss, active, warm, qfrc_smooth,
 
   a_smooth = _chol_solve(_chol_factor(qM), qfrc_smooth)
   # the current point with its cost, J a - aref and qM (a - a_smooth),
-  # carried from the test that chose it: the kernel recomputes them, in the
-  # same order, so the carried values are the same bits
+  # carried from the test that chose it, as the kernel does
   cost_w, jar_w, mda_w = total_cost(warm)
   cost_s, jar_s, mda_s = total_cost(a_smooth)
   a, cost, jar, mda = pick(cost_w < cost_s, (warm, cost_w, jar_w, mda_w),

@@ -7,7 +7,6 @@ Imports neither JAX nor MuJoCo, so it runs where only PyTorch is installed:
 Every test skips without a CUDA card.
 """
 
-import numpy as np
 import pytest
 import torch
 
@@ -27,9 +26,7 @@ def cuda():
 def _synthetic(seed, batch):
   """The synthetic systems of tests/test_pallas_parity.py: nv 5, nefc 9,
   3 friction rows."""
-  rng = np.random.default_rng(seed)
-  return [torch.from_numpy(np.stack(x)) for x in zip(
-      *[newton_kernel.random_system(rng, 5, 9, 3) for _ in range(batch)])]
+  return newton_kernel.random_batch(seed, 5, 9, 3, "some", batch, False)
 
 
 def _hand(device, batch, steps=3):
@@ -69,6 +66,33 @@ def test_kernel_matches_plain_synthetic(cuda, batch):
   ref = newton_kernel.newton_solve_reference(*args, n_friction=3, **KW)
   for o, r, name in zip(out, ref, NAMES):
     _assert_close(o, r, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", newton_kernel.EDGE_CASES,
+                         ids=lambda c: "nv{}-nefc{}-fr{}-{}-b{}{}".format(
+                             *c[:5], "-nonpd" if c[5] else ""))
+def test_kernel_matches_plain_edge_cases(cuda, case):
+  """Every lane of the tile (nv 32), weighted rows past one warp (nefc 70),
+  all or no limit rows active, ragged batches and a negative pivot: the
+  kernel and its plain version round alike, so the outputs are equal."""
+  seed = newton_kernel.EDGE_CASES.index(case)
+  args = [a.to(cuda) for a in newton_kernel.random_batch(seed, *case)]
+  kw = dict(n_friction=case[2], **KW)
+  out = newton_kernel.newton_solve(*args, **kw)
+  ref = newton_kernel.newton_solve_reference(*args, **kw)
+  for o, r, name in zip(out, ref, NAMES):
+    assert torch.isfinite(o).all(), name
+    assert torch.equal(o, r), (name, float((o - r).abs().max()))
+
+
+@pytest.mark.cuda
+def test_kernel_occupancy_one_wave_on_hand(cuda):
+  """The hand's solve (nv = nefc = 23) at batch 4096 fits the card in one
+  wave of blocks."""
+  blocks_per_sm, epb = newton_kernel.occupancy(23, 23)
+  sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+  assert -(-4096 // epb) <= blocks_per_sm * sms, (blocks_per_sm, epb, sms)
 
 
 @pytest.mark.cuda

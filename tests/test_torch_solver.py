@@ -90,6 +90,25 @@ def test_reference_matches_pallas_and_xla(batch):
                                err_msg="xla " + name)
 
 
+def test_reference_matches_pallas_and_xla_past_32_rows():
+  """More constraint rows than a warp has lanes (the kernel gathers its
+  weighted rows 32 at a time): nv 5, nefc 40, 3 friction rows."""
+  nv, nefc, n_fr = 5, 40, 3
+  args = _systems(5, 4, nv, nefc, n_fr)
+  ours = _reference(args, n_fr)
+  is_friction = tuple([True] * n_fr + [False] * (nefc - n_fr))
+  pallas = pallas_solver.solve_batched(
+      *map(jnp.asarray, args), is_friction=is_friction, iterations=6,
+      ls_iterations=6, interpret=True)
+  xla = _xla(args, n_fr, nefc)
+  assert (ours[2][:, n_fr:] != 0).any(), "no limit row pushes"
+  for o, p, x, name in zip(ours, pallas, xla, NAMES):
+    np.testing.assert_allclose(o.numpy(), p, rtol=1e-4, atol=1e-4,
+                               err_msg="pallas " + name)
+    np.testing.assert_allclose(o.numpy(), x, rtol=1e-4, atol=1e-4,
+                               err_msg="xla " + name)
+
+
 def test_reference_hand_shaped_matches_xla():
   args = _hand_systems(1, 8)
   assert args[5].any()   # some limit rows are active
