@@ -4,10 +4,13 @@ Builds the port's CUDA kernel from myosuite_tpu_torch/csrc, holds it against
 its plain PyTorch version on the card, drives the main path
 (MtxHandReachRandom-v0, reset + 16 control steps at batch 4096) and checks
 that every substep's solve went through the kernel, prints the kernel's
-occupancy and its split by phase (from a second, clock-stamped build), then
-replays the golden trajectory of the JAX package. Prints one JSON line of
-kernel numbers and, last, {"ok": true, "device": {...}}. Exits non-zero,
-with no result line, when any phase fails or when there is no CUDA card.
+occupancy and its split by phase (from a second, clock-stamped build),
+replays the golden trajectory of the JAX package, trains the hand with PPO
+at its default config (4096 envs; 3 timed training steps, a checkpoint
+round trip) and shows PPO learning the elbow pose task. Prints one JSON
+line of kernel numbers and, last, {"ok": true, "device": {...}}. Exits
+non-zero, with no result line, when any phase fails or when there is no
+CUDA card.
 
   python3 chip_smoke.py --parent DIR
 
@@ -30,6 +33,7 @@ import torch
 
 BATCH = 4096
 STEPS = 16               # bench.py's protocol: 16 control steps
+PPO_STEPS = 3            # timed PPO training steps (phase 5)
 # Kernel vs plain version, on every output: |ours - ref| <= TOL |ref| +
 # TOL max(1, max |ref|). The plain version sums in the kernel's order and the
 # kernel is built without multiply-add contraction, so most outputs agree
@@ -106,16 +110,16 @@ def control_steps(env, state, gen, n):
   return (time.perf_counter() - t0) / n * 1e3, state
 
 
-def profile_step(env, state, action):
-  """One control step under torch.profiler: (device-busy ms, wall ms,
-  kernel launches, the five costliest kernels as (name, ms, calls))."""
+def profile_call(fn, sync=torch.cuda.synchronize):
+  """fn() under torch.profiler: (device-busy ms, wall ms, kernel launches,
+  the five costliest kernels as (name, ms, calls))."""
   from torch.profiler import ProfilerActivity, profile
-  torch.cuda.synchronize()
+  sync()
   with profile(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
     t0 = time.perf_counter()
-    env.step(state, action)
-    torch.cuda.synchronize()
+    fn()
+    sync()
     wall = (time.perf_counter() - t0) * 1e3
   kernels = [e for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -154,6 +158,174 @@ def compare_parent(path, env, state, gen, args, kw, ours, few):
     print(f"  turn {who}: {ms:.4f} ms per launch ({ms_few:.4f} at batch "
           f"{few[0].shape[0]}), {step_ms:.2f} ms per control step")
   nk._lib = libs["this"]
+
+
+def ppo_phase(env, cfg, ckpt_dir):
+  """PPO on `env` at `cfg`: one warm-up training step, then PPO_STEPS timed
+  ones, each with its rollout / update split, Newton-kernel launches,
+  losses and largest policy-parameter change; the auto-reset's cost; a
+  checkpoint round trip into a fresh PPO; one deterministic policy call.
+  Raises on any failed check; returns the numbers."""
+  from myosuite_tpu_torch.physics import newton_kernel as nk
+  from myosuite_tpu_torch.train import checkpoint
+  from myosuite_tpu_torch.train import ppo as ppo_mod
+  dev = env.device
+  sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+  trainer = ppo_mod.PPO(env, cfg)
+  t0 = time.perf_counter()
+  ts = trainer.init(torch.Generator(device=dev).manual_seed(cfg.seed))
+  sync()
+  print(f"  init at {cfg.num_envs} envs: {time.perf_counter() - t0:.2f} s")
+  ts, _ = trainer.training_step(ts)   # warm-up
+  sync()
+
+  # the update's start and end, to split the step (a synchronize there)
+  marks = []
+  update = trainer._update_epoch
+
+  def timed_update(*args, **kw):
+    sync()
+    marks.append(time.perf_counter())
+    out = update(*args, **kw)
+    sync()
+    marks.append(time.perf_counter())
+    return out
+
+  trainer._update_epoch = timed_update
+  per_step = cfg.unroll_length * cfg.num_envs
+  want = cfg.unroll_length * env._n_substeps
+  out = {"steps": []}
+  for i in range(PPO_STEPS):
+    before = {k: v.clone() for k, v in ts.policy_params.items()}
+    marks.clear()
+    sync()
+    nk.launches = 0
+    t0 = time.perf_counter()
+    ts, metrics = trainer.training_step(ts)
+    sync()
+    t1 = time.perf_counter()
+    launches = nk.launches
+    m = {k: float(v) for k, v in metrics.items()}
+    change = max(float((ts.policy_params[k] - v).abs().max())
+                 for k, v in before.items())
+    step = dict(rollout_ms=(marks[0] - t0) * 1e3,
+                update_ms=(marks[1] - marks[0]) * 1e3,
+                wall_ms=(t1 - t0) * 1e3, env_steps_per_s=per_step / (t1 - t0),
+                launches=launches, max_param_change=change, **m)
+    out["steps"].append(step)
+    print(f"  training step {i}: rollout {step['rollout_ms']:.1f} ms, update "
+          f"{step['update_ms']:.1f} ms, {step['wall_ms']:.1f} ms in all = "
+          f"{step['env_steps_per_s']:.0f} training env-steps/s; Newton "
+          f"launches {launches}; policy_loss {m['policy_loss']:.4g} "
+          f"value_loss {m['value_loss']:.4g} entropy {m['entropy']:.4g} "
+          f"reward_per_step {m['reward_per_step']:.4g}; largest policy "
+          f"parameter change {change:.3e}")
+    if launches != want:
+      raise AssertionError(f"training step launched the kernel {launches} "
+                           f"times, want {want}")
+    if not all(np.isfinite(v) for v in m.values()):
+      raise AssertionError(f"non-finite training metrics {m}")
+    if not change > 0:
+      raise AssertionError("the policy parameters did not change")
+  trainer._update_epoch = update
+
+  # where a training step's time goes: one control step of the wrapped env
+  # (the auto-reset included) and one optimizer step on a minibatch of
+  # this run's data, each under the profiler
+  action = trainer.make_policy_fn(deterministic=False)(
+      ts, ts.env_state.obs["state"], ts.generator)
+  traj_ts, traj = trainer._rollout(ts)
+  advs, rets = trainer._gae(traj_ts, traj, ts.obs_stats)
+  mb = cfg.num_envs * cfg.unroll_length // cfg.num_minibatches
+  batch = [x.reshape((-1,) + x.shape[2:])[:mb].contiguous()
+           for x in (traj.obs, traj.raw_action, traj.log_prob, advs, rets)]
+  for label, fn in (
+      ("control step of the auto-reset env",
+       lambda: trainer.env.step(ts.env_state, action)),
+      (f"optimizer step on {mb} rows",
+       lambda: trainer._minibatch_step(ts, batch, ts.obs_stats))):
+    busy, wall, n_launch, top = profile_call(fn, sync)
+    out[label] = dict(busy_ms=busy, wall_ms=wall, launches=n_launch)
+    print(f"  profile of one {label}: device busy {busy:.2f} ms of "
+          f"{wall:.2f} ms wall under the profiler, {n_launch} kernel "
+          f"launches")
+    for name, ms_k, n in top:
+      print(f"    {ms_k:.3f} ms in {n} launches: {name}")
+
+  # the auto-reset's extra cost: one full-batch reset per control step
+  gen = torch.Generator(device=dev).manual_seed(1)
+  trainer.env._env.reset(gen, cfg.num_envs)
+  sync()
+  t0 = time.perf_counter()
+  for _ in range(3):
+    trainer.env._env.reset(gen, cfg.num_envs)
+  sync()
+  out["reset_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+  print(f"  auto-reset: {out['reset_ms']:.1f} ms per full-batch reset "
+        f"(one per control step, {cfg.unroll_length} per training step)")
+
+  # checkpoint round trip into a fresh PPO
+  path = checkpoint.save(ckpt_dir, ts, step=ts.env_steps)
+  fresh = ppo_mod.PPO(env, cfg)
+  got = checkpoint.restore(
+      path, fresh.init(torch.Generator(device=dev).manual_seed(cfg.seed + 1)))
+  pairs = [(got.policy_params[k], v) for k, v in ts.policy_params.items()]
+  pairs += [(got.value_params[k], v) for k, v in ts.value_params.items()]
+  o, p = got.opt_state, ts.opt_state
+  pairs += list(zip(o.mu + o.nu + [o.count, o.notfinite_count],
+                    p.mu + p.nu + [p.count, p.notfinite_count]))
+  pairs += [(getattr(got.obs_stats, k), getattr(ts.obs_stats, k))
+            for k in ("count", "mean", "m2")]
+  same = all(torch.equal(a, b) and a.device == b.device for a, b in pairs)
+  print(f"  checkpoint {path}: {len(pairs)} tensors (params, Adam state, obs "
+        f"stats) restored into a fresh PPO, bit-equal {same}")
+  if not same:
+    raise AssertionError("checkpoint round trip is not bit-equal")
+
+  act = fresh.make_policy_fn(deterministic=True)(got, got.env_state.obs[
+      "state"])
+  sync()
+  ok = (tuple(act.shape) == (cfg.num_envs, env.action_size)
+        and bool(torch.isfinite(act).all()) and bool((act.abs() <= 1).all()))
+  print(f"  deterministic policy on the batch: actions {tuple(act.shape)} "
+        f"finite and in [-1, 1] {ok}")
+  if not ok:
+    raise AssertionError("bad deterministic actions")
+  return out
+
+
+# PPO on the elbow as tests/test_training_smoke.py runs it in the JAX
+# package: 64 envs, 40 training iterations in 8 outer ones
+LEARN = dict(num_envs=64, unroll_length=10, num_minibatches=4,
+             num_updates_per_batch=4, num_timesteps=64 * 10 * 40,
+             num_evals=8, seed=3)
+
+
+def learn_phase(device, ckpt_dir):
+  """ppo.train on MtxElbowPoseRandom-v0 at LEARN; fails unless every
+  reward_per_step is finite and the mean of the last two iterations beats
+  that of the first two."""
+  import myosuite_tpu_torch
+  from myosuite_tpu_torch.train import callbacks
+  from myosuite_tpu_torch.train import ppo as ppo_mod
+  cfg = ppo_mod.default_config()
+  for k, v in LEARN.items():
+    setattr(cfg, k, v)
+  env = myosuite_tpu_torch.make("MtxElbowPoseRandom-v0", device=device)
+  history = []
+  _, ts, info = ppo_mod.train(
+      env, cfg,
+      progress_fn=lambda step, m: history.append(m["reward_per_step"]),
+      callbacks=[callbacks.InfoCallback(),
+                 callbacks.FallbackCheckpoint(ckpt_dir, every=4)])
+  early, late = float(np.mean(history[:2])), float(np.mean(history[-2:]))
+  print(f"  reward_per_step by iteration: "
+        f"{', '.join(f'{h:.4f}' for h in history)}; first two {early:.4f}, "
+        f"last two {late:.4f}; {info['steps']} env steps in "
+        f"{info['wall_clock']:.1f} s")
+  if not (len(history) >= 6 and np.isfinite(history).all() and late > early):
+    raise AssertionError(f"PPO did not learn the elbow: {history}")
+  return history
 
 
 def main():
@@ -232,9 +404,9 @@ def main():
     raise AssertionError(f"kernel launched {launches} times, want {want}")
   if not bool(torch.isfinite(obs).all()):
     raise AssertionError("non-finite observations")
-  busy, prof_wall, n_launch, top = profile_step(
-      env, state, torch.rand(BATCH, env.action_size, generator=gen,
-                             device=dev))
+  action = torch.rand(BATCH, env.action_size, generator=gen, device=dev)
+  busy, prof_wall, n_launch, top = profile_call(
+      lambda: env.step(state, action))
   step_ms = wall / STEPS * 1e3
   print(f"  profile of one control step: device busy {busy:.2f} ms "
         f"({prof_wall:.2f} ms wall under the profiler), {n_launch} kernel "
@@ -304,11 +476,29 @@ def main():
     if not v <= float(golden["atol_" + k]):
       raise AssertionError(f"golden trajectory: {k} off by {v}")
 
+  # 5. PPO on the main path at full width
+  from myosuite_tpu_torch.train import ppo as ppo_mod
+  build = os.path.join(os.path.dirname(os.path.abspath(nk.__file__)),
+                       os.pardir, "_build")
+  print(f"phase 5 PPO: MtxHandReachRandom-v0 at default_config() "
+        f"({BATCH} envs)")
+  cfg = ppo_mod.default_config()
+  trained = ppo_phase(env, cfg, os.path.join(build, "ckpt_hand"))
+  launches_ppo = sum(s["launches"] for s in trained["steps"])
+
+  # 6. PPO learns
+  print("phase 6 PPO learns: MtxElbowPoseRandom-v0, "
+        + ", ".join(f"{k} {v}" for k, v in LEARN.items()))
+  learn_phase(dev, os.path.join(build, "ckpt_elbow"))
+
   print(json.dumps({"kernels": [{
       "name": "newton_solver", "route": "cuda",
       "source": "myosuite_tpu_torch/csrc/newton_solver.cu",
       "replaces": "myosuite_tpu/physics/pallas_solver.py:95",
-      "launches": launches, "max_abs_err": max_abs, "ms": ms,
+      "launches": launches_ppo,
+      "launches_per_training_step": launches_ppo / len(trained["steps"]),
+      "launches_per_control_step": launches / STEPS,
+      "max_abs_err": max_abs, "ms": ms,
       "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
       "bound_by": "operations" if t_ops >= t_bytes else "bytes",
       "library_ms": None}]}))

@@ -41,7 +41,9 @@ class MyoEnv(abc.ABC):
 
   def __init__(self, model: Model, config: Dict[str, Any]):
     self._config = dict(config)
-    self._model = model
+    # the configured sim timestep, whatever the model file says
+    self._model = dataclasses.replace(model, opt=dataclasses.replace(
+        model.opt, timestep=float(config["sim_dt"])))
     self._n_substeps = int(round(config["ctrl_dt"] / config["sim_dt"]))
 
   @property

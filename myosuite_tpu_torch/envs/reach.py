@@ -12,7 +12,6 @@ fixed_target, ctrl_dt, sim_dt, max_episode_steps, reward_weights.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Any, Dict
 
 import torch
@@ -25,8 +24,6 @@ class ReachEnv(MyoEnv):
   """Cartesian site-reaching task over any muscle model."""
 
   def __init__(self, model: Model, config: Dict[str, Any]):
-    model = dataclasses.replace(model, opt=dataclasses.replace(
-        model.opt, timestep=float(config["sim_dt"])))
     super().__init__(model, config)
     dev = model.device
     self._tip_sids = torch.as_tensor(list(config["tip_sids"]),

@@ -19,9 +19,21 @@ from myosuite_tpu_torch.physics import types
 ASSETS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "assets")
 HAND_REACH_NPZ = os.path.join(ASSETS, "myohand_reach.npz")
+ELBOW_NPZ = os.path.join(ASSETS, "myoelbow.npz")
+FINGER_NPZ = os.path.join(ASSETS, "myofinger.npz")
 
-# order of the reward weights stored under "cfg_reward_weights"
+# order of the reward weights stored under "<prefix>reward_weights"
 REACH_REWARDS = ("reach", "bonus", "penalty")
+POSE_REWARDS = ("pose", "bonus", "act_reg", "penalty")
+
+# The JAX package's pose-task defaults (its registry's base_env_config and
+# pose_config), for the hand pose env, whose targets span the model's own
+# joint ranges and which has no config of its own in a model file.
+POSE_DEFAULTS = dict(
+    ctrl_dt=0.02, sim_dt=0.002, max_episode_steps=100, norm_actions=True,
+    reset_type="random", pose_thd=0.35, far_th=float(4 * np.pi / 2),
+    fixed_target=False,
+    reward_weights=dict(pose=1.0, bonus=4.0, act_reg=1.0, penalty=50.0))
 
 _REGISTRY: Dict[str, Callable[..., Any]] = {}
 _ALIASES: Dict[str, str] = {}
@@ -50,27 +62,77 @@ def make(name: str, device=None):
   return _REGISTRY[name](types.resolve_device(device))
 
 
-def reach_config_from_npz(extra: Dict[str, np.ndarray]) -> Dict[str, Any]:
-  """ReachEnv config from the "cfg_*" arrays of a model file."""
+def _episode_config(extra: Dict[str, np.ndarray], p: str) -> Dict[str, Any]:
+  return dict(ctrl_dt=float(extra[p + "ctrl_dt"]),
+              sim_dt=float(extra[p + "sim_dt"]),
+              max_episode_steps=int(extra[p + "max_episode_steps"]),
+              far_th=float(extra[p + "far_th"]), norm_actions=True)
+
+
+def reach_config_from_npz(extra: Dict[str, np.ndarray],
+                          p: str = "cfg_") -> Dict[str, Any]:
+  """ReachEnv config from the "<p>*" arrays of a model file."""
   return dict(
-      tip_sids=[int(s) for s in extra["cfg_tip_sids"]],
-      target_lo=extra["cfg_target_lo"], target_hi=extra["cfg_target_hi"],
-      ctrl_dt=float(extra["cfg_ctrl_dt"]), sim_dt=float(extra["cfg_sim_dt"]),
-      max_episode_steps=int(extra["cfg_max_episode_steps"]),
-      far_th=float(extra["cfg_far_th"]), norm_actions=True,
+      _episode_config(extra, p),
+      tip_sids=[int(s) for s in extra[p + "tip_sids"]],
+      target_lo=extra[p + "target_lo"], target_hi=extra[p + "target_hi"],
       reward_weights=dict(zip(REACH_REWARDS,
-                              map(float, extra["cfg_reward_weights"]))))
+                              map(float, extra[p + "reward_weights"]))))
 
 
-def _hand_reach(device, fixed=False):
+def pose_config_from_npz(extra: Dict[str, np.ndarray],
+                         p: str = "cfg_pose_") -> Dict[str, Any]:
+  """PoseEnv config from the "<p>*" arrays of a model file."""
+  return dict(
+      _episode_config(extra, p),
+      target_jnt_lo=extra[p + "target_jnt_lo"],
+      target_jnt_hi=extra[p + "target_jnt_hi"],
+      pose_thd=float(extra[p + "pose_thd"]),
+      reset_type=str(extra[p + "reset_type"]),
+      reward_weights=dict(zip(POSE_REWARDS,
+                              map(float, extra[p + "reward_weights"]))))
+
+
+def _reach(path, prefix, device, fixed=False):
   from myosuite_tpu_torch.envs.reach import ReachEnv
-  model, extra = physics_io.load_model(HAND_REACH_NPZ, device)
-  cfg = reach_config_from_npz(extra)
+  model, extra = physics_io.load_model(path, device)
+  cfg = reach_config_from_npz(extra, prefix)
   cfg["fixed_target"] = fixed
   return ReachEnv(model, cfg)
 
 
-register("MtxHandReachRandom-v0", _hand_reach,
-         aliases=("MjxHandReachRandom-v0", "myoHandReachRandom-v0"))
-register("MtxHandReachFixed-v0", functools.partial(_hand_reach, fixed=True),
-         aliases=("MjxHandReachFixed-v0", "myoHandReachFixed-v0"))
+def _pose(path, device, fixed=False):
+  from myosuite_tpu_torch.envs.pose import PoseEnv
+  model, extra = physics_io.load_model(path, device)
+  cfg = pose_config_from_npz(extra)
+  cfg["fixed_target"] = fixed
+  return PoseEnv(model, cfg)
+
+
+def _hand_pose(device, fixed=False):
+  from myosuite_tpu_torch.envs.pose import PoseEnv
+  model, _ = physics_io.load_model(HAND_REACH_NPZ, device)
+  rng = model.jnt_range.cpu().numpy()
+  cfg = dict(POSE_DEFAULTS, target_jnt_lo=rng[:, 0], target_jnt_hi=rng[:, 1],
+             pose_thd=1.0, fixed_target=fixed)
+  return PoseEnv(model, cfg)
+
+
+def _register_pair(stem, factory, aliases):
+  """<stem>{Random,Fixed}-v0 and their aliases (each an alias stem)."""
+  for kind, fixed in (("Random", False), ("Fixed", True)):
+    register(f"{stem}{kind}-v0", functools.partial(factory, fixed=fixed),
+             aliases=tuple(f"{a}{kind}-v0" for a in aliases))
+
+
+_register_pair("MtxHandReach",
+               functools.partial(_reach, HAND_REACH_NPZ, "cfg_"),
+               ("MjxHandReach", "myoHandReach"))
+_register_pair("MtxElbowPose", functools.partial(_pose, ELBOW_NPZ),
+               ("MjxElbowPose", "myoElbowPose1D6M"))
+_register_pair("MtxFingerPose", functools.partial(_pose, FINGER_NPZ),
+               ("MjxFingerPose", "myoFingerPose"))
+_register_pair("MtxFingerReach",
+               functools.partial(_reach, FINGER_NPZ, "cfg_reach_"),
+               ("myoFingerReach",))
+_register_pair("MtxHandPose", _hand_pose, ("MjxHandPose", "myoHandPose"))

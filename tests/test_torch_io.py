@@ -1,8 +1,10 @@
 """Port model loading against the JAX package, and the port's isolation.
 
-Run as a script to regenerate myosuite_tpu_torch/assets/myohand_reach.npz
-(the myoHand reach model and task config, compiled by MuJoCo here so that
-the port loads it without MuJoCo):
+Run as a script to regenerate the port's model files in
+myosuite_tpu_torch/assets/ (myohand_reach.npz: the myoHand and its reach
+task; myoelbow.npz: the elbow and its pose task; myofinger.npz: the finger
+and its pose and reach tasks), compiled by MuJoCo here so that the port
+loads them without MuJoCo:
 
   JAX_PLATFORMS=cpu python -m tests.test_torch_io
 """
@@ -22,7 +24,7 @@ from myosuite_tpu_torch.physics import io as torch_io
 from myosuite_tpu_torch.physics import types as torch_types
 from tests.common import CHAIN_XML, MUSCLE_XML
 from tests.test_actuation_parity import WRAP_XML
-from tests.torch_common import hand_reach_export, jax_fields
+from tests.torch_common import EXPORTS, jax_fields
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -58,16 +60,28 @@ def test_model_from_jax_fields_matches_put_model(xml, tmp_path):
   assert list(extra) == ["cfg_x"]
 
 
-def test_committed_hand_npz_matches_fresh_export():
-  fields, extra = hand_reach_export()
+def _assert_committed_matches_fresh_export(name):
+  fields, extra = EXPORTS[name]()
   fresh = {**fields, **extra}
-  with np.load(torch_registry.HAND_REACH_NPZ) as z:
+  with np.load(os.path.join(torch_registry.ASSETS, name)) as z:
     committed = {k: z[k] for k in z.files}
   assert sorted(committed) == sorted(fresh)
   for k, v in fresh.items():
     c = committed[k]
     assert c.dtype == v.dtype and c.shape == v.shape, k
     assert np.array_equal(c, v), k   # bit-equal floats, exact ints
+
+
+def test_committed_hand_npz_matches_fresh_export():
+  _assert_committed_matches_fresh_export("myohand_reach.npz")
+
+
+def test_committed_elbow_npz_matches_fresh_export():
+  _assert_committed_matches_fresh_export("myoelbow.npz")
+
+
+def test_committed_finger_npz_matches_fresh_export():
+  _assert_committed_matches_fresh_export("myofinger.npz")
 
 
 _ISOLATION = """
@@ -77,10 +91,22 @@ sys.modules["mujoco"] = None
 import torch
 import myosuite_tpu_torch
 from myosuite_tpu_torch.physics import forward, newton_kernel, solver
+from myosuite_tpu_torch.envs import pose, wrappers
+from myosuite_tpu_torch.train import (callbacks, checkpoint, convert,
+                                      networks, ppo, running_stats,
+                                      train_ppo)
 env = myosuite_tpu_torch.make("MtxHandReachRandom-v0", device="cpu")
 state = env.reset(torch.Generator().manual_seed(0), batch=2)
 state = env.step(state, torch.full((2, env.action_size), 0.5))
 assert torch.isfinite(state.obs["state"]).all()
+cfg = ppo.default_config()
+cfg.num_envs, cfg.unroll_length, cfg.num_minibatches = 2, 1, 1
+cfg.num_updates_per_batch = 1
+trainer = ppo.PPO(myosuite_tpu_torch.make("MtxFingerPoseRandom-v0",
+                                          device="cpu"), cfg)
+ts, metrics = trainer.training_step(
+    trainer.init(torch.Generator().manual_seed(0)))
+assert all(torch.isfinite(v) for v in metrics.values())
 bad = [k for k in sys.modules
        if k.split(".")[0] in ("myosuite_tpu", "jax", "flax", "mujoco",
                               "ml_collections")
@@ -91,8 +117,9 @@ print("ok")
 
 
 def test_port_imports_no_jax_and_no_myosuite_tpu():
-  """With jax and mujoco unimportable, the port imports and steps the
-  committed hand model, and loads no module of the JAX package."""
+  """With jax and mujoco unimportable, the port imports every module,
+  steps the committed hand model and takes a PPO training step on the
+  finger, and loads no module of the JAX package."""
   proc = subprocess.run([sys.executable, "-c", _ISOLATION], cwd=_REPO,
                         capture_output=True, text=True, timeout=300)
   assert proc.returncode == 0, proc.stderr
@@ -107,11 +134,13 @@ def test_make_needs_cuda_unless_cpu_is_asked(monkeypatch):
   assert env.device.type == "cpu" and env.action_size == 39
 
 
-def _write_hand_npz():
-  fields, extra = hand_reach_export()
-  torch_io.save_model(torch_registry.HAND_REACH_NPZ, fields, **extra)
-  print("wrote", torch_registry.HAND_REACH_NPZ)
+def _write_npz_files():
+  for name, export in EXPORTS.items():
+    fields, extra = export()
+    path = os.path.join(torch_registry.ASSETS, name)
+    torch_io.save_model(path, fields, **extra)
+    print("wrote", path)
 
 
 if __name__ == "__main__":
-  _write_hand_npz()
+  _write_npz_files()

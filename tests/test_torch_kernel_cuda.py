@@ -115,3 +115,39 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
   bad[0] = args[0].double()
   with pytest.raises(ValueError, match="contiguous float32"):
     newton_kernel.newton_solve(*bad, n_friction=3, **KW)
+
+
+def _elbow_trainer(device, num_envs=64):
+  import myosuite_tpu_torch
+  from myosuite_tpu_torch.train import ppo
+  cfg = ppo.default_config()
+  cfg.num_envs, cfg.num_minibatches, cfg.num_updates_per_batch = \
+      num_envs, 4, 2
+  return ppo.PPO(myosuite_tpu_torch.make("MtxElbowPoseRandom-v0",
+                                         device=device), cfg)
+
+
+@pytest.mark.cuda
+def test_training_step_runs_the_kernel(cuda):
+  """A PPO training step of the elbow (nv = 1) on the card solves every
+  substep of every rollout step in the kernel: unroll_length x 10
+  launches, finite metrics."""
+  trainer = _elbow_trainer(cuda)
+  ts = trainer.init(torch.Generator(device=cuda).manual_seed(0))
+  before = newton_kernel.launches
+  ts, metrics = trainer.training_step(ts)
+  torch.cuda.synchronize()
+  assert newton_kernel.launches - before == trainer.cfg.unroll_length * 10
+  assert all(bool(torch.isfinite(v)) for v in metrics.values()), metrics
+
+
+@pytest.mark.cuda
+def test_cuda_env_with_cpu_generator_raises(cuda):
+  """No fallback: a CPU generator for a CUDA env is an error."""
+  trainer = _elbow_trainer(cuda, num_envs=8)
+  with pytest.raises(ValueError, match="generator is on cpu"):
+    trainer.init(torch.Generator().manual_seed(0))
+  ts = trainer.init(torch.Generator(device=cuda).manual_seed(0))
+  ts.generator = torch.Generator()
+  with pytest.raises(ValueError, match="generator is on cpu"):
+    trainer.training_step(ts)

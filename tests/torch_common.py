@@ -35,6 +35,17 @@ TENDON_LIMIT_XML = MUSCLE_NOCON_XML.replace(
     'range="0.30 0.36">')
 
 
+def assert_close(name, ours, ref, atol=0.0, rtol=0.0):
+  """assert_allclose of a port result (tensor or array) against the JAX
+  package's, printing the measured gap (`pytest -s` shows it)."""
+  ours = np.asarray(ours.detach().cpu() if hasattr(ours, "detach") else ours,
+                    dtype=np.float64)
+  ref = np.asarray(ref, dtype=np.float64)
+  gap = float(np.abs(ours - ref).max()) if ours.size else 0.0
+  print(f"parity gap {name}: {gap:.3e} (atol {atol:g}, rtol {rtol:g})")
+  np.testing.assert_allclose(ours, ref, rtol=rtol, atol=atol, err_msg=name)
+
+
 def jax_fields(m):
   """A JAX `Model`'s fields through `jax.device_get`, as the field dict the
   port's `io.model_from_numpy` takes (options under "opt_<name>")."""
@@ -51,26 +62,76 @@ def jax_fields(m):
   return out
 
 
+def _episode_cfg(cfg, p):
+  return {p + "ctrl_dt": np.asarray(cfg.ctrl_dt, dtype=np.float64),
+          p + "sim_dt": np.asarray(cfg.sim_dt, dtype=np.float64),
+          p + "max_episode_steps": np.asarray(cfg.max_episode_steps,
+                                              dtype=np.int32),
+          p + "far_th": np.asarray(cfg.far_th, dtype=np.float64)}
+
+
+def _reach_cfg(env, p):
+  """A JAX ReachEnv's config as the "<p>*" arrays of a model file."""
+  from myosuite_tpu_torch.envs.registry import REACH_REWARDS
+  cfg = env.config
+  return dict(
+      {p + "tip_sids": np.asarray(env._tip_sids, dtype=np.int32),
+       p + "target_lo": np.asarray(cfg.target_lo, dtype=np.float32),
+       p + "target_hi": np.asarray(cfg.target_hi, dtype=np.float32)},
+      **_episode_cfg(cfg, p),
+      **{p + "reward_weights": np.asarray(
+          [cfg.reward_weights[k] for k in REACH_REWARDS], dtype=np.float64)})
+
+
+def _pose_cfg(env, p="cfg_pose_"):
+  """A JAX PoseEnv's config as the "<p>*" arrays of a model file."""
+  from myosuite_tpu_torch.envs.registry import POSE_REWARDS
+  cfg = env.config
+  return dict(
+      {p + "target_jnt_lo": np.asarray(cfg.target_jnt_lo, dtype=np.float32),
+       p + "target_jnt_hi": np.asarray(cfg.target_jnt_hi, dtype=np.float32),
+       p + "pose_thd": np.asarray(cfg.pose_thd, dtype=np.float64),
+       p + "reset_type": np.asarray(cfg.reset_type)},
+      **_episode_cfg(cfg, p),
+      **{p + "reward_weights": np.asarray(
+          [cfg.reward_weights[k] for k in POSE_REWARDS], dtype=np.float64)})
+
+
 def hand_reach_export():
   """Field dict and reach config of the JAX package's
   MtxHandReachRandom-v0, in the layout of
   myosuite_tpu_torch/assets/myohand_reach.npz."""
   import myosuite_tpu
-  from myosuite_tpu_torch.envs.registry import REACH_REWARDS
   from myosuite_tpu_torch.physics import io as torch_io
 
   env = myosuite_tpu.make("MtxHandReachRandom-v0")
-  cfg = env.config
-  fields = torch_io.model_fields(env.mj_model)
-  extra = dict(
-      cfg_tip_sids=np.asarray(env._tip_sids, dtype=np.int32),
-      cfg_target_lo=np.asarray(cfg.target_lo, dtype=np.float32),
-      cfg_target_hi=np.asarray(cfg.target_hi, dtype=np.float32),
-      cfg_ctrl_dt=np.asarray(cfg.ctrl_dt, dtype=np.float64),
-      cfg_sim_dt=np.asarray(cfg.sim_dt, dtype=np.float64),
-      cfg_max_episode_steps=np.asarray(cfg.max_episode_steps,
-                                       dtype=np.int32),
-      cfg_far_th=np.asarray(cfg.far_th, dtype=np.float64),
-      cfg_reward_weights=np.asarray(
-          [cfg.reward_weights[k] for k in REACH_REWARDS], dtype=np.float64))
-  return fields, extra
+  return torch_io.model_fields(env.mj_model), _reach_cfg(env, "cfg_")
+
+
+def elbow_export():
+  """Field dict and pose config of the JAX package's MtxElbowPoseRandom-v0
+  (myosuite_tpu_torch/assets/myoelbow.npz)."""
+  import myosuite_tpu
+  from myosuite_tpu_torch.physics import io as torch_io
+
+  env = myosuite_tpu.make("MtxElbowPoseRandom-v0")
+  return torch_io.model_fields(env.mj_model), _pose_cfg(env)
+
+
+def finger_export():
+  """Field dict, pose config (MtxFingerPoseRandom-v0) and reach config
+  (MtxFingerReachRandom-v0, under "cfg_reach_") of the JAX package's finger
+  (myosuite_tpu_torch/assets/myofinger.npz)."""
+  import myosuite_tpu
+  from myosuite_tpu_torch.physics import io as torch_io
+
+  pose = myosuite_tpu.make("MtxFingerPoseRandom-v0")
+  reach = myosuite_tpu.make("MtxFingerReachRandom-v0")
+  assert pose.config.model_xml == reach.config.model_xml
+  return (torch_io.model_fields(pose.mj_model),
+          dict(_pose_cfg(pose), **_reach_cfg(reach, "cfg_reach_")))
+
+
+# committed model file -> the function that exports it afresh
+EXPORTS = {"myohand_reach.npz": hand_reach_export,
+           "myoelbow.npz": elbow_export, "myofinger.npz": finger_export}
