@@ -7,7 +7,11 @@ that every substep's solve went through the kernel, prints the kernel's
 occupancy and its split by phase (from a second, clock-stamped build),
 replays the golden trajectory of the JAX package, trains the hand with PPO
 at its default config (4096 envs; 3 timed training steps, a checkpoint
-round trip) and shows PPO learning the elbow pose task. Prints one JSON
+round trip) and shows PPO learning the elbow pose task. Phase 7 drives
+contacts: MtxLegWalk-v0 at batch 4096 (16 timed control steps, its
+profile, the kernel against its plain version at the leg's own solver
+inputs, the leg golden trajectories), MtxLegWalkRough-v0 with a terrain
+per env, and one timed PPO training step on the leg. Prints one JSON
 line of kernel numbers and, last, {"ok": true, "device": {...}}. Exits
 non-zero, with no result line, when any phase fails or when there is no
 CUDA card.
@@ -34,6 +38,8 @@ import torch
 BATCH = 4096
 STEPS = 16               # bench.py's protocol: 16 control steps
 PPO_STEPS = 3            # timed PPO training steps (phase 5)
+LEG_PPO_STEPS = 1        # timed PPO training steps on the leg (phase 7)
+ROUGH_STEPS = 4          # control steps on terrain (phase 7)
 # Kernel vs plain version, on every output: |ours - ref| <= TOL |ref| +
 # TOL max(1, max |ref|). The plain version sums in the kernel's order and the
 # kernel is built without multiply-add contraction, so most outputs agree
@@ -160,8 +166,41 @@ def compare_parent(path, env, state, gen, args, kw, ours, few):
   nk._lib = libs["this"]
 
 
-def ppo_phase(env, cfg, ckpt_dir):
-  """PPO on `env` at `cfg`: one warm-up training step, then PPO_STEPS timed
+def kernel_numbers(label, args, kw):
+  """The Newton kernel against its plain version on one set of solver
+  inputs (`compare` at TOL), its ms per launch, the plain version's ms and
+  the bound from the cost model at the rows weighted at the solution."""
+  from myosuite_tpu_torch.physics import newton_kernel as nk
+  ours = nk.newton_solve(*args, **kw)
+  ref = nk.newton_solve_reference(*args, **kw)
+  max_abs = compare(label, ours, ref, TOL)
+  ms = cuda_ms(lambda: nk.newton_solve(*args, **kw), 50)
+  plain_ms = cuda_ms(lambda: nk.newton_solve_reference(*args, **kw), 3)
+  batch, nefc, nv = args[1].shape
+  n_weighted = nk.weighted_rows(ours[2], kw["n_friction"])
+  flops = batch * nk.flops_per_env(nv, nefc, kw["iterations"],
+                                   kw["ls_iterations"], n_weighted)
+  nbytes = batch * nk.bytes_per_env(nv, nefc)
+  t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+  print(f"  newton_solver, {label}: {ms:.4f} ms per launch (plain version "
+        f"{plain_ms:.3f} ms); work {flops:.3e} FP32 ops ({n_weighted:.2f} "
+        f"of {nefc} rows weighted at the solution), {nbytes:.3e} bytes; "
+        f"bound {max(t_ops, t_bytes):.4f} ms by {t_ops:.4f} ms of operations "
+        f"and {t_bytes:.4f} ms of bytes")
+  sms = torch.cuda.get_device_properties(0).multi_processor_count
+  per_sm, epb = nk.occupancy(nv, nefc)
+  blocks = -(-batch // epb)
+  print(f"  occupancy: {per_sm} blocks of {epb} envs per SM "
+        f"({per_sm * epb} warps), {blocks} blocks on {sms} SMs = "
+        f"{blocks / (per_sm * sms):.3f} waves at batch {batch}")
+  return dict(ours=ours, max_abs=max_abs, ms=ms, plain_ms=plain_ms,
+              bound_ms=max(t_ops, t_bytes),
+              bound_by="operations" if t_ops >= t_bytes else "bytes",
+              epb=epb)
+
+
+def ppo_phase(env, cfg, ckpt_dir, steps=PPO_STEPS):
+  """PPO on `env` at `cfg`: one warm-up training step, then `steps` timed
   ones, each with its rollout / update split, Newton-kernel launches,
   losses and largest policy-parameter change; the auto-reset's cost; a
   checkpoint round trip into a fresh PPO; one deterministic policy call.
@@ -195,7 +234,7 @@ def ppo_phase(env, cfg, ckpt_dir):
   per_step = cfg.unroll_length * cfg.num_envs
   want = cfg.unroll_length * env._n_substeps
   out = {"steps": []}
-  for i in range(PPO_STEPS):
+  for i in range(steps):
     before = {k: v.clone() for k, v in ts.policy_params.items()}
     marks.clear()
     sync()
@@ -328,6 +367,150 @@ def learn_phase(device, ckpt_dir):
   return history
 
 
+GOLDEN_FIELDS = ("obs", "reward", "done", "qpos", "qvel", "act")
+
+
+def check_golden(label, env, state, golden, prefix=""):
+  """Step `env` from `state` through the golden actions and hold each field
+  within the tolerance stored beside it (golden[prefix + field] and
+  golden["atol_" + prefix + field]); print the largest gaps."""
+  rec = {k: [] for k in GOLDEN_FIELDS}
+  dev = state.obs["state"].device
+  for a in golden["actions"]:
+    state = env.step(state, torch.from_numpy(a).to(dev))
+    for k, v in zip(GOLDEN_FIELDS, (state.obs["state"], state.reward,
+                                    state.done, state.data.qpos,
+                                    state.data.qvel, state.data.act)):
+      rec[k].append(v.cpu().numpy())
+  gaps = {k: float(np.abs(np.stack(v) - golden[prefix + k]).max())
+          for k, v in rec.items()}
+  tol = {k: float(golden["atol_" + prefix + k]) for k in GOLDEN_FIELDS}
+  print(f"{label}: " + ", ".join(f"{k} {v:.3e} (tol {tol[k]:.3e})"
+                                 for k, v in gaps.items()))
+  for k, v in gaps.items():
+    if not v <= tol[k]:
+      raise AssertionError(f"{label}: {k} off by {v}")
+
+
+def contact_phase(dev, build):
+  """Phase 7: the leg's contacts at batch 4096 through the Newton kernel.
+  Raises on any failed check."""
+  import myosuite_tpu_torch
+  from myosuite_tpu_torch.envs.registry import ASSETS
+  from myosuite_tpu_torch.envs.wrappers import AutoResetWrapper
+  from myosuite_tpu_torch.physics import collision, constraint, forward
+  from myosuite_tpu_torch.physics import newton_kernel as nk
+  from myosuite_tpu_torch.train import ppo as ppo_mod
+
+  env = myosuite_tpu_torch.make("MtxLegWalk-v0")
+  m = env.model
+  gen = torch.Generator(dev).manual_seed(0)
+  t0 = time.perf_counter()
+  state = env.reset(gen, BATCH)
+  torch.cuda.synchronize()
+  classes = ", ".join(f"{g.key[0].name.lower()}-{g.key[1].name.lower()} "
+                      f"x{len(g.g1)}" for g in m.plan["collision"].groups)
+  print(f"phase 7 contacts: MtxLegWalk-v0 reset at batch {BATCH} in "
+        f"{time.perf_counter() - t0:.2f} s; nv {m.nv}, nu {m.nu}, contact "
+        f"slots {m.ncon_max} ({classes}), nefc "
+        f"{m.plan['constraint'].nefc}")
+  control_steps(env, state, gen, 2)                  # warm-up
+  nk.launches = 0
+  step_ms, state = control_steps(env, state, gen, STEPS)
+  leg_launches = launches = nk.launches
+  obs = state.obs["state"]
+  d = state.data
+  print(f"  {STEPS} control steps: {step_ms:.2f} ms per control step, "
+        f"{BATCH / step_ms * 1e3:.0f} env-steps/s; kernel launches "
+        f"{launches}; obs {tuple(obs.shape)} finite "
+        f"{bool(torch.isfinite(obs).all())}; mean ncon_active "
+        f"{float(d.ncon_active.float().mean()):.3f} of {m.ncon_max}; "
+        f"largest contact_force {float(d.contact_force.max()):.2f} N; "
+        f"done {float(state.done.mean()):.3f}")
+  if launches != STEPS * env._n_substeps:
+    raise AssertionError(f"leg: kernel launched {launches} times, want "
+                         f"{STEPS * env._n_substeps}")
+  if not bool(torch.isfinite(obs).all()):
+    raise AssertionError("leg: non-finite observations")
+  action = torch.rand(BATCH, env.action_size, generator=gen, device=dev)
+  busy, prof_wall, n_launch, top = profile_call(
+      lambda: env.step(state, action))
+  print(f"  profile of one control step: device busy {busy:.2f} ms "
+        f"({prof_wall:.2f} ms wall under the profiler), {n_launch} kernel "
+        f"launches; idle share of the unprofiled step "
+        f"{max(0.0, 1.0 - busy / step_ms):.3f}")
+  for name, ms_k, n in top:
+    print(f"    {ms_k:.3f} ms in {n} launches: {name}")
+  # the contact stages alone at this state, by CUDA events: 10 per step
+  col_ms = cuda_ms(lambda: collision.collision(m, d), 20)
+  efc_ms = cuda_ms(lambda: constraint.make_efc(m, d), 20)
+  for stage, t in (("collision", col_ms), ("make_efc", efc_ms)):
+    print(f"  {stage} alone: {t:.3f} ms per substep = "
+          f"{10 * t / step_ms:.3f} of a control step")
+
+  # the kernel against its plain version at the leg's own inputs
+  args, kw = forward.solve_inputs(m, d)
+  leg = kernel_numbers(f"leg batch {BATCH}", args, kw)
+
+  # the leg golden trajectories of the JAX package, replayed on the card
+  with np.load(f"{ASSETS}/leg_walk_golden.npz") as z:
+    golden = {k: z[k] for k in z.files}
+  nb = golden["actions"].shape[1]
+  for tag, name in (("walk", "MtxLegWalk-v0"),
+                    ("rough", "MtxLegWalkRough-v0")):
+    genv = myosuite_tpu_torch.make(
+        name, overrides={"reset_type": "init"} if tag == "walk" else None)
+    ggen = torch.Generator(dev).manual_seed(0)
+    if tag == "rough":
+      hf = torch.from_numpy(golden["hfield"]).to(dev)
+      gstate = genv.reset(ggen, nb, hfield=hf.expand(nb, -1, -1).clone())
+    else:
+      gstate = genv.reset(ggen, nb)
+    check_golden(f"  golden {tag}", genv, gstate, golden, f"{tag}_")
+
+  # terrain: a heightfield per env, drawn at each reset
+  renv = myosuite_tpu_torch.make("MtxLegWalkRough-v0")
+  rstate = renv.reset(gen, BATCH)
+  control_steps(renv, rstate, gen, 1)                # warm-up
+  nk.launches = 0
+  rough_ms, rstate = control_steps(renv, rstate, gen, ROUGH_STEPS)
+  launches = nk.launches
+  robs = rstate.obs["state"]
+  print(f"  MtxLegWalkRough-v0, {ROUGH_STEPS} control steps at batch "
+        f"{BATCH}: {rough_ms:.2f} ms per control step; kernel launches "
+        f"{launches}; obs {tuple(robs.shape)} finite "
+        f"{bool(torch.isfinite(robs).all())}; heightfields "
+        f"{rstate.data.hfield_data.numel() * 4 / 1e6:.1f} MB")
+  if launches != ROUGH_STEPS * renv._n_substeps:
+    raise AssertionError(f"rough: kernel launched {launches} times")
+  if not bool(torch.isfinite(robs).all()):
+    raise AssertionError("rough: non-finite observations")
+  terrain_ms = cuda_ms(lambda: renv.terrain(gen, BATCH), 5)
+  renv.reset(gen, BATCH)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for _ in range(3):
+    renv.reset(gen, BATCH)
+  torch.cuda.synchronize()
+  reset_ms = (time.perf_counter() - t0) / 3 * 1e3
+  wrapped = AutoResetWrapper(renv)
+  wstate = wrapped.reset(gen, BATCH)
+  wrapped_ms, _ = control_steps(wrapped, wstate, gen, 2)
+  print(f"  auto-reset on terrain: {reset_ms:.1f} ms per full-batch reset "
+        f"({terrain_ms:.2f} ms of it drawing {BATCH} terrains); a wrapped "
+        f"control step {wrapped_ms:.2f} ms against {rough_ms:.2f} ms bare; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"GB")
+
+  # PPO on the leg
+  cfg = ppo_mod.default_config()
+  print(f"  PPO: MtxLegWalk-v0 at default_config() ({cfg.num_envs} envs)")
+  trained = ppo_phase(env, cfg, os.path.join(build, "ckpt_leg"),
+                      steps=LEG_PPO_STEPS)
+  return dict(leg=leg, step_ms=step_ms, launches=leg_launches,
+              ppo=trained["steps"])
+
+
 def main():
   parser = argparse.ArgumentParser()
   parser.add_argument("--parent", help="checkout whose Newton kernel to "
@@ -417,28 +600,10 @@ def main():
 
   # kernel vs plain version at the main path's shapes, and their times
   args, kw = forward.solve_inputs(env.model, state.data)
-  ours = nk.newton_solve(*args, **kw)
-  ref = nk.newton_solve_reference(*args, **kw)
-  max_abs = compare(f"hand batch {BATCH}", ours, ref, TOL)
-  ms = cuda_ms(lambda: nk.newton_solve(*args, **kw), 50)
-  plain_ms = cuda_ms(lambda: nk.newton_solve_reference(*args, **kw), 3)
-  nv, nefc = args[1].shape[2], args[1].shape[1]
-  n_weighted = nk.weighted_rows(ours[2], kw["n_friction"])
-  flops = BATCH * nk.flops_per_env(nv, nefc, kw["iterations"],
-                                   kw["ls_iterations"], n_weighted)
-  nbytes = BATCH * nk.bytes_per_env(nv, nefc)
-  t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
-  print(f"  newton_solver: {ms:.4f} ms per launch (plain version "
-        f"{plain_ms:.3f} ms); work {flops:.3e} FP32 ops ({n_weighted:.2f} "
-        f"of {nefc} rows weighted at the solution), {nbytes:.3e} bytes; "
-        f"bound {max(t_ops, t_bytes):.4f} ms by {t_ops:.4f} ms of operations "
-        f"and {t_bytes:.4f} ms of bytes")
+  hand = kernel_numbers(f"hand batch {BATCH}", args, kw)
+  ours, epb = hand["ours"], hand["epb"]
+  ms = hand["ms"]
   sms = torch.cuda.get_device_properties(0).multi_processor_count
-  per_sm, epb = nk.occupancy(nv, nefc)
-  blocks = -(-BATCH // epb)
-  print(f"  occupancy: {per_sm} blocks of {epb} envs per SM "
-        f"({per_sm * epb} warps), {blocks} blocks on {sms} SMs = "
-        f"{blocks / (per_sm * sms):.3f} waves at batch {BATCH}")
   # the same inputs at one block per SM: a quarter of the warps compete for
   # each scheduler, so the time falls as far as issue, not latency, bounds
   few = [a[:sms * epb].contiguous() for a in args]
@@ -460,21 +625,7 @@ def main():
   genv = myosuite_tpu_torch.make("MtxHandReachFixed-v0")
   gstate = genv.reset(torch.Generator(dev).manual_seed(0),
                       golden["actions"].shape[1])
-  gaps = {k: 0.0 for k in ("obs", "reward", "done", "qpos", "qvel", "act")}
-  for i, a in enumerate(golden["actions"]):
-    gstate = genv.step(gstate, torch.from_numpy(a).to(dev))
-    got = dict(obs=gstate.obs["state"], reward=gstate.reward,
-               done=gstate.done, qpos=gstate.data.qpos,
-               qvel=gstate.data.qvel, act=gstate.data.act)
-    for k in gaps:
-      gap = float(np.abs(got[k].cpu().numpy() - golden[k][i]).max())
-      gaps[k] = max(gaps[k], gap)
-  print("phase 4 golden: " + ", ".join(
-      f"{k} {v:.3e} (tol {float(golden['atol_' + k]):.3e})"
-      for k, v in gaps.items()))
-  for k, v in gaps.items():
-    if not v <= float(golden["atol_" + k]):
-      raise AssertionError(f"golden trajectory: {k} off by {v}")
+  check_golden("phase 4 golden", genv, gstate, golden)
 
   # 5. PPO on the main path at full width
   from myosuite_tpu_torch.train import ppo as ppo_mod
@@ -491,6 +642,12 @@ def main():
         + ", ".join(f"{k} {v}" for k, v in LEARN.items()))
   learn_phase(dev, os.path.join(build, "ckpt_elbow"))
 
+  # 7. contacts: the leg
+  contact_phase(dev, build)
+
+  # the card again, on one of the last lines (the head of a long output
+  # may be cut off where it is read)
+  print(f"nvidia-smi: {smi}")
   print(json.dumps({"kernels": [{
       "name": "newton_solver", "route": "cuda",
       "source": "myosuite_tpu_torch/csrc/newton_solver.cu",
@@ -498,10 +655,9 @@ def main():
       "launches": launches_ppo,
       "launches_per_training_step": launches_ppo / len(trained["steps"]),
       "launches_per_control_step": launches / STEPS,
-      "max_abs_err": max_abs, "ms": ms,
-      "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-      "library_ms": None}]}))
+      "max_abs_err": hand["max_abs"], "ms": ms,
+      "plain_ms": hand["plain_ms"], "bound_ms": hand["bound_ms"],
+      "bound_by": hand["bound_by"], "library_ms": None}]}))
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -111,9 +111,12 @@ class MyoEnv(abc.ABC):
       total = total + float(weights.get(k, 1.0)) * r
     return total
 
-  def _make_data(self, qpos: torch.Tensor, qvel: torch.Tensor) -> Data:
+  def _make_data(self, qpos: torch.Tensor, qvel: torch.Tensor,
+                 hfield: Optional[torch.Tensor] = None) -> Data:
     d = physics_io.make_data(self._model, qpos.shape[0])
     d = d.replace(qpos=qpos, qvel=qvel)
+    if hfield is not None:
+      d = d.replace(hfield_data=hfield)
     # settle derived quantities so obs at reset are valid
     d = physics_forward.fwd_position(self._model, d)
     return physics_forward.fwd_velocity(self._model, d)

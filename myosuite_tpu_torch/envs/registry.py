@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import functools
 import os
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 
@@ -21,6 +21,8 @@ ASSETS = os.path.join(os.path.dirname(os.path.dirname(
 HAND_REACH_NPZ = os.path.join(ASSETS, "myohand_reach.npz")
 ELBOW_NPZ = os.path.join(ASSETS, "myoelbow.npz")
 FINGER_NPZ = os.path.join(ASSETS, "myofinger.npz")
+LEG_NPZ = os.path.join(ASSETS, "myoleg.npz")
+LEG_TERRAIN_NPZ = os.path.join(ASSETS, "myoleg_terrain.npz")
 
 # order of the reward weights stored under "<prefix>reward_weights"
 REACH_REWARDS = ("reach", "bonus", "penalty")
@@ -34,6 +36,19 @@ POSE_DEFAULTS = dict(
     reset_type="random", pose_thd=0.35, far_th=float(4 * np.pi / 2),
     fixed_target=False,
     reward_weights=dict(pose=1.0, bonus=4.0, act_reg=1.0, penalty=50.0))
+
+# The walk task's scalar config keys, stored under "cfg_walk_<key>" (with
+# the reward names and weights, site ids, hip addresses and gait keyframes;
+# the terrain model adds hf_base and hf_extent).
+WALK_SCALARS = ("ctrl_dt", "sim_dt", "max_episode_steps", "target_velocity",
+                "gait_period", "hip_amplitude", "min_height", "max_rot",
+                "stand_height")
+WALK_IDS = ("pelvis_site", "torso_site", "rfoot_site", "lfoot_site",
+            "rhip_adr", "lhip_adr")
+# The JAX package's stand task: the walk config with these overrides.
+STAND_OVERRIDES = dict(
+    max_episode_steps=300, reset_type="none",
+    reward_weights=dict(reach=1.0, bonus=4.0, penalty=50.0, act_reg=1.0))
 
 _REGISTRY: Dict[str, Callable[..., Any]] = {}
 _ALIASES: Dict[str, str] = {}
@@ -53,13 +68,14 @@ def resolve(name: str) -> str:
   return _ALIASES.get(name, name)
 
 
-def make(name: str, device=None):
+def make(name: str, device=None, overrides: Optional[Dict[str, Any]] = None):
   """Instantiate an env by id on `device` (default "cuda"; raises when CUDA
-  is not available unless another device is named)."""
+  is not available unless another device is named); `overrides` replace
+  entries of the env's config."""
   name = resolve(name)
   if name not in _REGISTRY:
     raise KeyError(f"unknown env {name!r}; registered: {registered_envs()}")
-  return _REGISTRY[name](types.resolve_device(device))
+  return _REGISTRY[name](types.resolve_device(device), dict(overrides or {}))
 
 
 def _episode_config(extra: Dict[str, np.ndarray], p: str) -> Dict[str, Any]:
@@ -93,29 +109,62 @@ def pose_config_from_npz(extra: Dict[str, np.ndarray],
                               map(float, extra[p + "reward_weights"]))))
 
 
-def _reach(path, prefix, device, fixed=False):
+def walk_config_from_npz(extra: Dict[str, np.ndarray],
+                         p: str = "cfg_walk_") -> Dict[str, Any]:
+  """WalkEnv config from the "<p>*" arrays of a model file."""
+  cfg = {k: float(extra[p + k]) for k in WALK_SCALARS}
+  cfg["max_episode_steps"] = int(cfg["max_episode_steps"])
+  cfg.update({k: int(extra[p + k]) for k in WALK_IDS})
+  cfg.update(
+      norm_actions=True, reset_type=str(extra[p + "reset_type"]),
+      reward_weights=dict(zip(map(str, extra[p + "reward_names"]),
+                              map(float, extra[p + "reward_weights"]))),
+      gait_qpos=extra[p + "gait_qpos"], gait_qvel=extra[p + "gait_qvel"])
+  for k in ("hf_base", "hf_extent"):
+    if p + k in extra:
+      cfg[k] = tuple(map(float, extra[p + k]))
+  return cfg
+
+
+def _reach(path, prefix, device, overrides, fixed=False):
   from myosuite_tpu_torch.envs.reach import ReachEnv
   model, extra = physics_io.load_model(path, device)
   cfg = reach_config_from_npz(extra, prefix)
   cfg["fixed_target"] = fixed
-  return ReachEnv(model, cfg)
+  return ReachEnv(model, {**cfg, **overrides})
 
 
-def _pose(path, device, fixed=False):
+def _pose(path, device, overrides, fixed=False):
   from myosuite_tpu_torch.envs.pose import PoseEnv
   model, extra = physics_io.load_model(path, device)
   cfg = pose_config_from_npz(extra)
   cfg["fixed_target"] = fixed
-  return PoseEnv(model, cfg)
+  return PoseEnv(model, {**cfg, **overrides})
 
 
-def _hand_pose(device, fixed=False):
+def _hand_pose(device, overrides, fixed=False):
   from myosuite_tpu_torch.envs.pose import PoseEnv
   model, _ = physics_io.load_model(HAND_REACH_NPZ, device)
   rng = model.jnt_range.cpu().numpy()
   cfg = dict(POSE_DEFAULTS, target_jnt_lo=rng[:, 0], target_jnt_hi=rng[:, 1],
              pose_thd=1.0, fixed_target=fixed)
-  return PoseEnv(model, cfg)
+  return PoseEnv(model, {**cfg, **overrides})
+
+
+def _leg(device, overrides, kind="walk"):
+  """The myoLeg tasks: "walk", "stand", or a terrain type for walking over
+  terrain ("rough", "hilly", "stairs", "flat", "random")."""
+  from myosuite_tpu_torch.envs import locomotion
+  terrain = kind not in ("walk", "stand")
+  model, extra = physics_io.load_model(
+      LEG_TERRAIN_NPZ if terrain else LEG_NPZ, device)
+  cfg = walk_config_from_npz(extra)
+  if kind == "stand":
+    return locomotion.StandEnv(model, {**cfg, **STAND_OVERRIDES, **overrides})
+  if terrain:
+    return locomotion.TerrainWalkEnv(
+        model, {**cfg, "terrain_type": kind, **overrides})
+  return locomotion.WalkEnv(model, {**cfg, **overrides})
 
 
 def _register_pair(stem, factory, aliases):
@@ -136,3 +185,11 @@ _register_pair("MtxFingerReach",
                functools.partial(_reach, FINGER_NPZ, "cfg_reach_"),
                ("myoFingerReach",))
 _register_pair("MtxHandPose", _hand_pose, ("MjxHandPose", "myoHandPose"))
+register("MtxLegWalk-v0", _leg, aliases=("myoLegWalk-v0",))
+register("MtxLegStand-v0", functools.partial(_leg, kind="stand"),
+         aliases=("myoLegReachFixed-v0", "myoLegStand-v0"))
+for _kind, _alias in (("Rough", "Rough"), ("Hilly", "Hilly"),
+                      ("Stairs", "Stair")):
+  register(f"MtxLegWalk{_kind}-v0", functools.partial(_leg,
+                                                      kind=_kind.lower()),
+           aliases=(f"myoLeg{_alias}TerrainWalk-v0",))

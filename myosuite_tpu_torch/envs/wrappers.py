@@ -16,7 +16,6 @@ from typing import Any, Dict
 import torch
 
 from myosuite_tpu_torch.envs.base import State
-from myosuite_tpu_torch.physics.types import Data
 
 # info entries the wrapper owns (the rest are the env's, selected per env)
 _OWN = ("generator", "reset_generator", "truncation", "terminal_obs",
@@ -27,6 +26,22 @@ def _pick(boundary: torch.Tensor, new: torch.Tensor,
           old: torch.Tensor) -> torch.Tensor:
   """new where boundary, else old, per env (leading axis)."""
   return torch.where(boundary.view((-1,) + (1,) * (old.dim() - 1)), new, old)
+
+
+def _pick_fields(boundary: torch.Tensor, new, old, static=()):
+  """`_pick` over every field of a dataclass, descending into dataclass
+  fields; fields named in `static` (tables without an env axis, the same
+  on both sides) are passed through."""
+  out = {}
+  for f in dataclasses.fields(old):
+    a, b = getattr(new, f.name), getattr(old, f.name)
+    if f.name in static:
+      out[f.name] = b
+    elif dataclasses.is_dataclass(b):
+      out[f.name] = _pick_fields(boundary, a, b, getattr(b, "STATIC", ()))
+    else:
+      out[f.name] = _pick(boundary, a, b)
+  return type(old)(**out)
 
 
 class AutoResetWrapper:
@@ -73,9 +88,7 @@ class AutoResetWrapper:
 
     fresh = self._env.reset(info["reset_generator"], reward.shape[0])
     pick = lambda new, old: _pick(boundary, new, old)
-    data = Data(**{f.name: pick(getattr(fresh.data, f.name),
-                                getattr(state.data, f.name))
-                   for f in dataclasses.fields(Data)})
+    data = _pick_fields(boundary, fresh.data, state.data)
     new_obs = {k: pick(fresh.obs[k], v) for k, v in obs.items()}
 
     # env-specific info (targets etc.) comes from the reset branch too

@@ -1,13 +1,16 @@
-"""Constraint assembly: dof friction loss, joint limits and tendon limits.
+"""Constraint assembly: dof friction loss, joint and tendon limits,
+contacts.
 
 Builds a dense batched constraint system (J, aref, R, floss, active)
 following MuJoCo's soft-constraint model (solref/solimp impedances), which
 the Newton solve consumes. Row layout: [dof friction] [joint limits]
-[tendon limits]; friction rows are a prefix, so the solver needs only
-their count. Activity is a mask, not a shape.
+[tendon limits] [contact rows]; friction rows are a prefix, so the solver
+needs only their count. Activity is a mask, not a shape.
 
-Contact rows are not ported yet (ROADMAP.md, queue A: "Contacts");
-`make_efc` raises for a model that has contact slots.
+Contacts use the pyramidal cone, grouped by condim: a condim-1 contact is
+one normal row; a condim-c contact has 2 (c - 1) edge rows J0 +- mu_i J_i,
+emitted axis by axis, + before -, each over the group's contacts (the JAX
+package's row order). `Plan.con_slots` maps each row to its contact slot.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from myosuite_tpu_torch.physics import math
+from myosuite_tpu_torch.physics.collision import slot_pairs
 from myosuite_tpu_torch.physics.types import (Data, JointType, Model,
                                               index_tensor)
 
@@ -70,10 +75,16 @@ class Plan(NamedTuple):
   lim_vadr: torch.Tensor
   lim_J: torch.Tensor       # (n_jlim, nv) one-hot rows
   lim_ten: torch.Tensor     # limited tendons
+  con_groups: tuple         # ((condim, slot ids), ...) by ascending condim
+  con_slots: torch.Tensor   # (nefc,) contact slot per row, -1 elsewhere
+  con_rows: torch.Tensor    # rows of contacts (con_slots >= 0)
+  con_body1: torch.Tensor   # (ncon,) body of each slot's geoms
+  con_body2: torch.Tensor
   nefc: int
   n_fr: int
   n_jlim: int
   n_tlim: int
+  n_con: int                # contact rows
 
 
 def make_plan(m: Model) -> Plan:
@@ -92,13 +103,26 @@ def make_plan(m: Model) -> Plan:
     eye[np.arange(len(cols)), cols] = 1.0
     return torch.as_tensor(eye, device=dev)
 
+  slots = slot_pairs(m)
+  slot_dims = slots[:, 3]
+  con_groups = tuple((int(c), np.nonzero(slot_dims == c)[0])
+                     for c in sorted(set(slot_dims.tolist())))
   n_fr, n_jlim, n_tlim = len(fr_dof), len(lim_jnt), len(lim_ten)
+  # row -> contact slot, in make_efc's row order
+  con_slots = np.concatenate(
+      [-np.ones(n_fr + n_jlim + n_tlim, dtype=np.int64)]
+      + [np.tile(ids, 1 if c == 1 else 2 * (c - 1)) for c, ids in con_groups])
+  con_rows = np.nonzero(con_slots >= 0)[0]
   return Plan(fr_dof=idx(fr_dof), fr_jnt=idx(m.dof_jntid[fr_dof]),
               fr_J=one_hot(fr_dof), lim_jnt=idx(lim_jnt),
               lim_qadr=idx(m.jnt_qposadr[lim_jnt]), lim_vadr=idx(lim_vadr),
               lim_J=one_hot(lim_vadr), lim_ten=idx(lim_ten),
-              nefc=n_fr + n_jlim + n_tlim, n_fr=n_fr, n_jlim=n_jlim,
-              n_tlim=n_tlim)
+              con_groups=tuple((c, idx(ids)) for c, ids in con_groups),
+              con_slots=idx(con_slots), con_rows=idx(con_rows),
+              con_body1=idx(m.geom_bodyid[slots[:, 0]]),
+              con_body2=idx(m.geom_bodyid[slots[:, 1]]),
+              nefc=len(con_slots), n_fr=n_fr, n_jlim=n_jlim, n_tlim=n_tlim,
+              n_con=len(con_rows))
 
 
 def _r(imp, invweight):
@@ -114,12 +138,55 @@ def _limit_rows(dist_lo, dist_hi, margin, solref, solimp):
   return sign, pos, k, b, imp, dist < margin
 
 
+def _contact_rows(m: Model, d: Data, plan: Plan):
+  """(J, aref, R, floss, active) of each condim group's pyramidal rows."""
+  kin = m.plan["kinematics"]
+  con = d.contact
+  B, qvel = d.batch, d.qvel
+  b1, b2 = plan.con_body1, plan.con_body2
+  com_root = d.subtree_com[:, kin.root]                  # (B, nbody, 3)
+
+  def pts_jac(bodies):
+    """Translational Jacobians (B, ncon, nv, 3) of the contact points as
+    points of `bodies`."""
+    offset = con.pos - com_root[:, bodies]               # (B, ncon, 3)
+    jacp = (math.cross(d.cdof[:, None, :, :3], offset[:, :, None, :])
+            + d.cdof[:, None, :, 3:])
+    return jacp * kin.body_dof_mask[bodies][None, :, :, None]
+
+  jdiff = pts_jac(b2) - pts_jac(b1)
+  jc = torch.einsum("bnak,bnvk->bnav", con.frame, jdiff)  # (B, ncon, 3, nv)
+  pos_err = con.dist - con.includemargin
+  active = con.dist < con.includemargin
+  k, b, imp = _kbi(con.solref, con.solimp, pos_err)
+  invweight = m.body_invweight0[b1, 0] + m.body_invweight0[b2, 0]
+
+  for condim, ids in plan.con_groups:
+    kimp = k[:, ids] * imp[:, ids] * pos_err[:, ids]
+    if condim == 1:
+      J = jc[:, ids, 0]
+      yield (J, -b[:, ids] * _mv(J, qvel) - kimp,
+             _r(imp[:, ids], invweight[ids]),
+             qvel.new_zeros(B, len(ids)), active[:, ids])
+      continue
+    mu = con.friction[:, ids, 0]
+    iw = (invweight[ids] * 2.0 * mu * mu) / m.opt.impratio
+    nrep = 2 * (condim - 1)
+    J = torch.cat([jc[:, ids, 0] + sgn * con.friction[:, ids, ax - 1, None]
+                   * jc[:, ids, ax]
+                   for ax in range(1, condim) for sgn in (1.0, -1.0)], 1)
+    rep = lambda x: x.repeat(1, nrep)
+    yield (J, -rep(b[:, ids]) * _mv(J, qvel) - rep(kimp),
+           rep(_r(imp[:, ids], iw)), qvel.new_zeros(B, nrep * len(ids)),
+           rep(active[:, ids]))
+
+
+def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+  return torch.matmul(A, x[..., None])[..., 0]
+
+
 def make_efc(m: Model, d: Data) -> Efc:
   """Assemble the batched constraint system for the current state."""
-  if m.ncon_max:
-    raise NotImplementedError(
-        "contact constraints are not ported yet (ROADMAP.md, queue A: "
-        "Contacts)")
   plan: Plan = m.plan["constraint"]
   B, nv = d.batch, m.nv
   qvel = d.qvel
@@ -160,11 +227,15 @@ def make_efc(m: Model, d: Data) -> Efc:
         m.tendon_margin[t], m.tendon_solref_lim[t], m.tendon_solimp_lim[t])
     J = sign[..., None] * d.ten_J[:, t]
     Js.append(J)
-    arefs.append(-b * torch.matmul(J, qvel[..., None])[..., 0]
-                 - k * imp * pos)
+    arefs.append(-b * _mv(J, qvel) - k * imp * pos)
     Rs.append(_r(imp, m.tendon_invweight0[t]))
     flosses.append(qvel.new_zeros(B, plan.n_tlim))
     actives.append(active)
+
+  if plan.n_con:
+    for rows in _contact_rows(m, d, plan):
+      for out, x in zip((Js, arefs, Rs, flosses, actives), rows):
+        out.append(x)
 
   return Efc(J=torch.cat(Js, 1), aref=torch.cat(arefs, 1),
              R=torch.cat(Rs, 1), floss=torch.cat(flosses, 1),

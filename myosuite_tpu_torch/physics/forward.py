@@ -13,8 +13,9 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from myosuite_tpu_torch.physics import (actuation, constraint, kinematics,
-                                        math, smooth, solver, tendon)
+from myosuite_tpu_torch.physics import (actuation, collision, constraint,
+                                        kinematics, math, smooth, solver,
+                                        tendon)
 from myosuite_tpu_torch.physics.types import (Data, DynType,
                                               IntegratorType, JointType,
                                               Model, index_tensor)
@@ -73,7 +74,7 @@ def fwd_position(m: Model, d: Data) -> Data:
   d = tendon.tendon(m, d)
   d = actuation.transmission(m, d)
   d = smooth.crb(m, d)
-  return d
+  return collision.collision(m, d)
 
 
 def fwd_velocity(m: Model, d: Data) -> Data:
@@ -111,9 +112,17 @@ def fwd_constraint(m: Model, d: Data) -> Data:
   efc = constraint.make_efc(m, d)
   qacc, qfrc_constraint, efc_force, a_smooth, qacc_euler = solver.solve(
       m, d, efc)
-  return d.replace(qacc=qacc, qfrc_constraint=qfrc_constraint,
-                   efc_force=efc_force, qacc_smooth=a_smooth,
-                   qacc_euler=qacc_euler)
+  d = d.replace(qacc=qacc, qfrc_constraint=qfrc_constraint,
+                efc_force=efc_force, qacc_smooth=a_smooth,
+                qacc_euler=qacc_euler)
+  plan: constraint.Plan = m.plan["constraint"]
+  if not plan.n_con:
+    return d
+  # per-contact normal force: the pyramidal edge forces of one contact sum
+  # to its normal component
+  contact_force = torch.zeros_like(d.contact_force).index_add_(
+      1, plan.con_slots[plan.con_rows], efc_force[:, plan.con_rows])
+  return d.replace(contact_force=contact_force)
 
 
 def solve_inputs(m: Model, d: Data):

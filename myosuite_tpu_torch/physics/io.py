@@ -9,7 +9,8 @@ was compiled beforehand with `load_model`.
 
 The loader also precomputes what the step keeps static: the topological
 levels of the kinematic tree, the collision-pair table with its contact
-capacity, and each module's index plan.
+capacity, and each module's index plan. Mesh i's vertices and triangles
+are stored under the numbered keys "mesh_vert_<i>" and "mesh_face_<i>".
 """
 
 from __future__ import annotations
@@ -188,17 +189,31 @@ def model_fields(mj) -> Dict[str, np.ndarray]:
     out["opt_" + k] = np.asarray(int(getattr(mj.opt, k)))
   for k in OPTION_PARAMS:
     out["opt_" + k] = np.asarray(getattr(mj.opt, k), dtype=np.float32)
+  # convex meshes: geom-local vertices and outward-wound triangles
+  for i in range(int(mj.nmesh)):
+    va, vn = int(mj.mesh_vertadr[i]), int(mj.mesh_vertnum[i])
+    fa, fn = int(mj.mesh_faceadr[i]), int(mj.mesh_facenum[i])
+    out[f"mesh_vert_{i}"] = np.asarray(mj.mesh_vert[va:va + vn],
+                                       dtype=np.float32)
+    out[f"mesh_face_{i}"] = np.asarray(mj.mesh_face[fa:fa + fn],
+                                       dtype=np.int32)
   return out
+
+
+def _is_mesh_key(k: str) -> bool:
+  return k.startswith(("mesh_vert_", "mesh_face_"))
 
 
 def model_from_numpy(fields: Dict[str, Any], device=None) -> Model:
   """Build the torch `Model` from a field dict of numpy arrays.
 
-  Keys are the field names of SIZE_FIELDS, STRUCT_FIELDS and PARAM_FIELDS
-  plus "opt_<name>" for the options; other keys are ignored.
+  Keys are the field names of SIZE_FIELDS, STRUCT_FIELDS and PARAM_FIELDS,
+  "opt_<name>" for the options and "mesh_{vert,face}_<i>" for the meshes;
+  other keys are ignored.
   """
-  from myosuite_tpu_torch.physics import (actuation, constraint, forward,
-                                          kinematics, smooth, tendon)
+  from myosuite_tpu_torch.physics import (actuation, collision, constraint,
+                                          forward, kinematics, smooth,
+                                          tendon)
 
   dev = types.resolve_device(device)
   sizes = {k: int(np.asarray(fields[k])) for k in SIZE_FIELDS}
@@ -212,9 +227,15 @@ def model_from_numpy(fields: Dict[str, Any], device=None) -> Model:
       **{k: torch.tensor(np.asarray(fields["opt_" + k], dtype=np.float32),
                          device=dev)
          for k in OPTION_PARAMS})
+  nmesh = sum(1 for k in fields if k.startswith("mesh_vert_"))
   m = Model(sizes=sizes, struct=struct, params=params, opt=opt,
-            body_tree=_body_levels(struct["body_parentid"]), device=dev)
-  for mod in (kinematics, tendon, actuation, smooth, constraint, forward):
+            body_tree=_body_levels(struct["body_parentid"]), device=dev,
+            mesh_vert=tuple(np.asarray(fields[f"mesh_vert_{i}"])
+                            for i in range(nmesh)),
+            mesh_face=tuple(np.asarray(fields[f"mesh_face_{i}"])
+                            for i in range(nmesh)))
+  for mod in (kinematics, tendon, actuation, smooth, collision, constraint,
+              forward):
     m.plan[mod.__name__.rsplit(".", 1)[1]] = mod.make_plan(m)
   return m
 
@@ -235,12 +256,14 @@ def load_model(path: str, device=None
     fields = {k: z[k] for k in z.files}
   model_keys = (set(SIZE_FIELDS) | set(STRUCT_FIELDS) | set(PARAM_FIELDS)
                 | {"opt_" + k for k in OPTION_STATIC + OPTION_PARAMS})
-  extra = {k: v for k, v in fields.items() if k not in model_keys}
+  extra = {k: v for k, v in fields.items()
+           if k not in model_keys and not _is_mesh_key(k)}
   return model_from_numpy(fields, device), extra
 
 
 def make_data(m: Model, batch: int, device=None) -> Data:
-  """Fresh batched Data at qpos0, everything else zeroed."""
+  """Fresh batched Data at qpos0, everything else zeroed; every contact
+  slot far apart (dist 1e10) with MuJoCo's default contact parameters."""
   dev = m.device if device is None else types.resolve_device(device)
   f32 = torch.float32
 
@@ -254,6 +277,18 @@ def make_data(m: Model, batch: int, device=None) -> Data:
   eye3 = torch.eye(3)
   unit_quat = torch.tensor([1.0, 0.0, 0.0, 0.0])
   nmocap = max(m.nmocap, 1)
+  from myosuite_tpu_torch.physics.collision import slot_pairs
+  ncon = m.ncon_max
+  slots = slot_pairs(m)
+  contact = types.Contact(
+      dist=torch.full((batch, ncon), 1e10, dtype=f32, device=dev),
+      pos=z(ncon, 3), frame=tile(eye3, ncon), includemargin=z(ncon),
+      friction=tile([1.0, 1.0, 0.005, 0.0001, 0.0001], ncon),
+      solref=tile([0.02, 1.0], ncon),
+      solimp=tile([0.9, 0.95, 0.001, 0.5, 2.0], ncon),
+      geom1=types.index_tensor(slots[:, 0], dev),
+      geom2=types.index_tensor(slots[:, 1], dev),
+      dim=types.index_tensor(slots[:, 3], dev))
   return Data(
       time=z(),
       qpos=m.qpos0.to(dev).expand(batch, m.nq).clone(),
@@ -277,4 +312,7 @@ def make_data(m: Model, batch: int, device=None) -> Data:
       qfrc_actuator=z(m.nv), qfrc_smooth=z(m.nv), qacc_smooth=z(m.nv),
       qfrc_constraint=z(m.nv), qacc=z(m.nv), qacc_euler=z(m.nv),
       efc_force=z(m.plan["constraint"].nefc),
+      contact=contact,
+      ncon_active=torch.zeros(batch, dtype=torch.int32, device=dev),
+      contact_force=z(ncon), hfield_data=z(m.hfield_nrow, m.hfield_ncol),
   )

@@ -187,16 +187,17 @@ def random_system(rng, nv: int, nefc: int, n_friction: int):
 # edges, as (nv, nefc, n_friction, limits, batch, non_pd): every lane of
 # the tile (nv 32), more rows than a warp (nefc 70), friction rows or
 # none, every limit row active or none, batches that are not a multiple of
-# the envs per block, a mass matrix with a negative pivot, and the pose
+# the envs per block, a mass matrix with a negative pivot, the pose
 # models' shapes: the elbow (nv 1, one limit row) and the finger (nv 4,
-# four limit rows), where most of the tile is padding.
+# four limit rows), where most of the tile is padding, and the myoLeg's
+# (nv 20, 14 joint-limit and 40 contact rows, no friction rows).
 EDGE_CASES = ((5, 9, 3, "some", 5, False), (5, 9, 3, "some", 37, False),
               (5, 70, 3, "some", 37, False), (23, 23, 0, "all", 37, False),
               (23, 23, 0, "none", 37, False), (23, 70, 3, "some", 37, False),
               (32, 9, 0, "some", 37, False), (32, 23, 3, "some", 37, False),
               (32, 70, 3, "all", 37, False), (23, 9, 3, "some", 37, True),
               (1, 1, 0, "all", 37, False), (1, 1, 0, "none", 37, False),
-              (4, 4, 0, "some", 37, False))
+              (4, 4, 0, "some", 37, False), (20, 54, 0, "some", 37, False))
 
 
 def random_batch(seed: int, nv: int, nefc: int, n_friction: int,

@@ -159,7 +159,8 @@ class Model:
 
   Built by `io.model_from_numpy` (which also fills `body_tree` and `plan`);
   the dataclass fields are listed in SIZE_FIELDS, STRUCT_FIELDS and
-  PARAM_FIELDS above.
+  PARAM_FIELDS above. `mesh_vert[i]` (V, 3) and `mesh_face[i]` (F, 3) are
+  mesh i's geom-local vertices and triangles (host numpy).
   """
   sizes: Dict[str, int]
   struct: Dict[str, np.ndarray]
@@ -167,6 +168,8 @@ class Model:
   opt: Option
   body_tree: Tuple[Tuple[int, ...], ...]
   device: torch.device
+  mesh_vert: Tuple[np.ndarray, ...] = ()
+  mesh_face: Tuple[np.ndarray, ...] = ()
   plan: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
   def __getattr__(self, name):
@@ -177,6 +180,28 @@ class Model:
       if d is not None and name in d:
         return d[name]
     raise AttributeError(name)
+
+
+@dataclasses.dataclass
+class Contact:
+  """Fixed-capacity contact set: every slot of every candidate pair, with
+  activity given by dist < includemargin (not by a shape)."""
+  dist: torch.Tensor           # (B, ncon)
+  pos: torch.Tensor            # (B, ncon, 3)
+  frame: torch.Tensor          # (B, ncon, 3, 3) rows: normal, tan1, tan2
+  includemargin: torch.Tensor  # (B, ncon)
+  friction: torch.Tensor       # (B, ncon, 5)
+  solref: torch.Tensor         # (B, ncon, 2)
+  solimp: torch.Tensor         # (B, ncon, 5)
+  # static per-slot tables (torch.long, no env axis)
+  geom1: torch.Tensor          # (ncon,)
+  geom2: torch.Tensor          # (ncon,)
+  dim: torch.Tensor            # (ncon,) condim
+
+  STATIC = ("geom1", "geom2", "dim")
+
+  def replace(self, **kw) -> "Contact":
+    return dataclasses.replace(self, **kw)
 
 
 @dataclasses.dataclass
@@ -233,6 +258,13 @@ class Data:
   qacc_euler: torch.Tensor
   # constraints
   efc_force: torch.Tensor      # (B, nefc)
+  # contacts
+  contact: Contact
+  ncon_active: torch.Tensor    # (B,) int32: contacts within their margin
+  contact_force: torch.Tensor  # (B, ncon_max) normal force per contact slot
+  # terrain heights in meters, (B, hfield_nrow, hfield_ncol); (B, 0, 0) if
+  # the model has no heightfield. Per env, so a reset can draw new terrain.
+  hfield_data: torch.Tensor
 
   def replace(self, **kw) -> "Data":
     return dataclasses.replace(self, **kw)

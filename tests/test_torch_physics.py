@@ -162,10 +162,17 @@ def test_make_efc(xml):
 
 
 def test_make_efc_raises_on_contacts():
+  """Named for what it checked before contacts were ported, when make_efc
+  raised for a model with contact slots. It now checks that make_efc
+  gives the elbow contact's pyramidal rows after the limit row
+  (tests/test_torch_contacts.py holds their values against JAX)."""
   _, _, tm = _models(MUSCLE_XML)   # its arm capsules have a contact slot
   d = io.make_data(tm, 1, "cpu")
-  with pytest.raises(NotImplementedError, match="Contacts"):
-    constraint.make_efc(tm, d)
+  efc = constraint.make_efc(tm, d)
+  plan = tm.plan["constraint"]
+  assert (plan.n_jlim, plan.n_con, plan.nefc) == (1, 4, 5)
+  assert efc.J.shape == (1, 5, 1)
+  assert plan.con_slots.tolist() == [-1, 0, 0, 0, 0]
 
 
 def test_integrate_qpos_free_ball_hinge_slide():

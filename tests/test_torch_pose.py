@@ -86,7 +86,8 @@ def test_hand_pose_config_matches_jax():
 
 
 def test_registry_ids_and_aliases():
-  """The ids of the JAX registry this slice ports, with their aliases."""
+  """The ids of the JAX registry the port has so far, with their
+  aliases."""
   want = {
       "MtxElbowPoseRandom-v0": ("MjxElbowPoseRandom-v0",
                                 "myoElbowPose1D6MRandom-v0"),
@@ -103,6 +104,11 @@ def test_registry_ids_and_aliases():
       "MtxHandReachRandom-v0": ("MjxHandReachRandom-v0",
                                 "myoHandReachRandom-v0"),
       "MtxHandReachFixed-v0": ("MjxHandReachFixed-v0", "myoHandReachFixed-v0"),
+      "MtxLegWalk-v0": ("myoLegWalk-v0",),
+      "MtxLegStand-v0": ("myoLegReachFixed-v0", "myoLegStand-v0"),
+      "MtxLegWalkRough-v0": ("myoLegRoughTerrainWalk-v0",),
+      "MtxLegWalkHilly-v0": ("myoLegHillyTerrainWalk-v0",),
+      "MtxLegWalkStairs-v0": ("myoLegStairTerrainWalk-v0",),
   }
   assert registry.registered_envs() == sorted(want)
   for name, aliases in want.items():

@@ -22,9 +22,11 @@ def solver_6x6(xml):
                      'ls_iterations="6"/>')
 
 
-# MUSCLE_XML with geom collisions switched off: its two arm capsules touch at
-# the elbow, which gives it a contact slot, and contacts are not ported yet.
-MUSCLE_NOCON_XML = solver_6x6(MUSCLE_XML).replace(
+# The full muscle arm: its two capsules touch at the elbow, a contact slot.
+MUSCLE_XML6 = solver_6x6(MUSCLE_XML)
+# The arm with geom collisions switched off, for the tests that step it
+# without contacts.
+MUSCLE_NOCON_XML = MUSCLE_XML6.replace(
     "<worldbody>",
     '<default><geom contype="0" conaffinity="0"/></default>\n  <worldbody>')
 LIMIT6_XML = solver_6x6(LIMIT_XML)
@@ -55,8 +57,11 @@ def jax_fields(m):
     if f.name == "opt":
       for g in dataclasses.fields(v):
         out["opt_" + g.name] = np.asarray(jax.device_get(getattr(v, g.name)))
-    elif f.name in ("body_tree", "mesh_vert", "mesh_face"):
-      continue   # derived by the port, or mesh colliders (not ported)
+    elif f.name == "body_tree":
+      continue   # derived by the port
+    elif f.name in ("mesh_vert", "mesh_face"):
+      for i, table in enumerate(v):          # the port's numbered keys
+        out[f"{f.name}_{i}"] = np.asarray(table.arr)
     else:
       out[f.name] = np.asarray(jax.device_get(v))
   return out
@@ -132,6 +137,55 @@ def finger_export():
           dict(_pose_cfg(pose), **_reach_cfg(reach, "cfg_reach_")))
 
 
+def _walk_cfg(env, p="cfg_walk_"):
+  """A JAX WalkEnv's config, site ids, hip addresses and gait keyframes
+  (and a TerrainWalkEnv's heightfield base and extent) as the "<p>*"
+  arrays of a model file."""
+  from myosuite_tpu_torch.envs.registry import WALK_IDS, WALK_SCALARS
+  cfg = env.config
+  out = {p + k: np.asarray(cfg[k], dtype=np.float64) for k in WALK_SCALARS}
+  out[p + "max_episode_steps"] = np.asarray(cfg.max_episode_steps,
+                                            dtype=np.int32)
+  ids = dict(pelvis_site=env._pelvis_site, torso_site=env._torso_site,
+             rfoot_site=env._rfoot_site, lfoot_site=env._lfoot_site,
+             rhip_adr=env._rhip_adr, lhip_adr=env._lhip_adr)
+  out.update({p + k: np.asarray(ids[k], dtype=np.int32) for k in WALK_IDS})
+  names = sorted(cfg.reward_weights.keys())
+  out.update({
+      p + "reset_type": np.asarray(cfg.reset_type),
+      p + "reward_names": np.asarray(names),
+      p + "reward_weights": np.asarray([cfg.reward_weights[k] for k in names],
+                                       dtype=np.float64),
+      p + "gait_qpos": np.asarray(env._gait_qpos, dtype=np.float32),
+      p + "gait_qvel": np.asarray(env._gait_qvel, dtype=np.float32)})
+  if hasattr(env, "_hf_base"):
+    out[p + "hf_base"] = np.asarray(env._hf_base, dtype=np.float64)
+    out[p + "hf_extent"] = np.asarray(env._hf_extent, dtype=np.float64)
+  return out
+
+
+def leg_export():
+  """Field dict and walk config of the JAX package's MtxLegWalk-v0
+  (myosuite_tpu_torch/assets/myoleg.npz)."""
+  import myosuite_tpu
+  from myosuite_tpu_torch.physics import io as torch_io
+
+  env = myosuite_tpu.make("MtxLegWalk-v0")
+  return torch_io.model_fields(env.mj_model), _walk_cfg(env)
+
+
+def leg_terrain_export():
+  """Field dict and walk config of the JAX package's MtxLegWalkRough-v0,
+  whose leg walks on a heightfield (myosuite_tpu_torch/assets/
+  myoleg_terrain.npz)."""
+  import myosuite_tpu
+  from myosuite_tpu_torch.physics import io as torch_io
+
+  env = myosuite_tpu.make("MtxLegWalkRough-v0")
+  return torch_io.model_fields(env.mj_model), _walk_cfg(env)
+
+
 # committed model file -> the function that exports it afresh
 EXPORTS = {"myohand_reach.npz": hand_reach_export,
-           "myoelbow.npz": elbow_export, "myofinger.npz": finger_export}
+           "myoelbow.npz": elbow_export, "myofinger.npz": finger_export,
+           "myoleg.npz": leg_export, "myoleg_terrain.npz": leg_terrain_export}
