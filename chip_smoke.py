@@ -11,8 +11,13 @@ round trip) and shows PPO learning the elbow pose task. Phase 7 drives
 contacts: MtxLegWalk-v0 at batch 4096 (16 timed control steps, its
 profile, the kernel against its plain version at the leg's own solver
 inputs, the leg golden trajectories), MtxLegWalkRough-v0 with a terrain
-per env, and one timed PPO training step on the leg. Prints one JSON
-line of kernel numbers and, last, {"ok": true, "device": {...}}. Exits
+per env, and one timed PPO training step on the leg. Phase 8 drives the
+five in-hand manipulation envs at batch 4096 (16 timed control steps
+each, the kernel against its plain version at each env's own inputs,
+occupancy, golden replays) and one timed PPO training step on
+MtxHandObjHoldRandom-v0. Prints one JSON line of kernel numbers (with a
+`shapes` list per (nv, nefc)) and, last, {"ok": true, "device": {...}}.
+Exits
 non-zero, with no result line, when any phase fails or when there is no
 CUDA card.
 
@@ -40,6 +45,16 @@ STEPS = 16               # bench.py's protocol: 16 control steps
 PPO_STEPS = 3            # timed PPO training steps (phase 5)
 LEG_PPO_STEPS = 1        # timed PPO training steps on the leg (phase 7)
 ROUGH_STEPS = 4          # control steps on terrain (phase 7)
+MANIP_STEPS = 16         # control steps of each manipulation env (phase 8)
+# phase 8: each model file's env at batch 4096, and its golden env (a Fixed
+# id, or fixed_target=True)
+MANIP = (("hold", "MtxHandObjHoldRandom-v0", "MtxHandObjHoldFixed-v0", None),
+         ("die", "MtxHandDieReorient-v0", "MtxHandDieReorient-v0",
+          {"fixed_target": True}),
+         ("pen", "MtxHandPenTwirlRandom-v0", "MtxHandPenTwirlFixed-v0", None),
+         ("baoding", "MtxHandBaoding-v0", "MtxHandBaoding-v0",
+          {"fixed_target": True}),
+         ("key", "MtxHandKeyTurnRandom-v0", "MtxHandKeyTurnFixed-v0", None))
 # Kernel vs plain version, on every output: |ours - ref| <= TOL |ref| +
 # TOL max(1, max |ref|). The plain version sums in the kernel's order and the
 # kernel is built without multiply-add contraction, so most outputs agree
@@ -136,6 +151,33 @@ def profile_call(fn, sync=torch.cuda.synchronize):
                                  e.count) for e in top]
 
 
+def step_profile(env, state, action, step_ms):
+  """One control step under the profiler, printed with its launches per
+  substep and the idle share of an unprofiled step of `step_ms`; returns
+  (device-busy ms, launches)."""
+  busy, prof_wall, n_launch, top = profile_call(
+      lambda: env.step(state, action))
+  print(f"  profile of one control step: device busy {busy:.2f} ms "
+        f"({prof_wall:.2f} ms wall under the profiler), {n_launch} kernel "
+        f"launches ({n_launch / env._n_substeps:.0f} per substep); idle "
+        f"share of the unprofiled step {max(0.0, 1.0 - busy / step_ms):.3f}")
+  for name, ms_k, n in top:
+    print(f"    {ms_k:.3f} ms in {n} launches: {name}")
+  return busy, n_launch
+
+
+def contact_stages(m, d, step_ms, n_substeps):
+  """`collision` and `make_efc` alone at the state d, by CUDA events;
+  returns their ms per substep."""
+  from myosuite_tpu_torch.physics import collision, constraint
+  col_ms = cuda_ms(lambda: collision.collision(m, d), 20)
+  efc_ms = cuda_ms(lambda: constraint.make_efc(m, d), 20)
+  for stage, t in (("collision", col_ms), ("make_efc", efc_ms)):
+    print(f"  {stage} alone: {t:.3f} ms per substep = "
+          f"{n_substeps * t / step_ms:.3f} of a control step")
+  return col_ms, efc_ms
+
+
 def compare_parent(path, env, state, gen, args, kw, ours, few):
   """Time the kernel of the checkout at `path` against this one in turns
   (parent, this, this, parent): per launch on the main path's inputs (and
@@ -196,7 +238,7 @@ def kernel_numbers(label, args, kw):
   return dict(ours=ours, max_abs=max_abs, ms=ms, plain_ms=plain_ms,
               bound_ms=max(t_ops, t_bytes),
               bound_by="operations" if t_ops >= t_bytes else "bytes",
-              epb=epb)
+              epb=epb, blocks_per_sm=per_sm)
 
 
 def ppo_phase(env, cfg, ckpt_dir, steps=PPO_STEPS):
@@ -398,7 +440,7 @@ def contact_phase(dev, build):
   import myosuite_tpu_torch
   from myosuite_tpu_torch.envs.registry import ASSETS
   from myosuite_tpu_torch.envs.wrappers import AutoResetWrapper
-  from myosuite_tpu_torch.physics import collision, constraint, forward
+  from myosuite_tpu_torch.physics import forward
   from myosuite_tpu_torch.physics import newton_kernel as nk
   from myosuite_tpu_torch.train import ppo as ppo_mod
 
@@ -433,20 +475,8 @@ def contact_phase(dev, build):
   if not bool(torch.isfinite(obs).all()):
     raise AssertionError("leg: non-finite observations")
   action = torch.rand(BATCH, env.action_size, generator=gen, device=dev)
-  busy, prof_wall, n_launch, top = profile_call(
-      lambda: env.step(state, action))
-  print(f"  profile of one control step: device busy {busy:.2f} ms "
-        f"({prof_wall:.2f} ms wall under the profiler), {n_launch} kernel "
-        f"launches; idle share of the unprofiled step "
-        f"{max(0.0, 1.0 - busy / step_ms):.3f}")
-  for name, ms_k, n in top:
-    print(f"    {ms_k:.3f} ms in {n} launches: {name}")
-  # the contact stages alone at this state, by CUDA events: 10 per step
-  col_ms = cuda_ms(lambda: collision.collision(m, d), 20)
-  efc_ms = cuda_ms(lambda: constraint.make_efc(m, d), 20)
-  for stage, t in (("collision", col_ms), ("make_efc", efc_ms)):
-    print(f"  {stage} alone: {t:.3f} ms per substep = "
-          f"{10 * t / step_ms:.3f} of a control step")
+  step_profile(env, state, action, step_ms)
+  contact_stages(m, d, step_ms, env._n_substeps)
 
   # the kernel against its plain version at the leg's own inputs
   args, kw = forward.solve_inputs(m, d)
@@ -507,8 +537,90 @@ def contact_phase(dev, build):
   print(f"  PPO: MtxLegWalk-v0 at default_config() ({cfg.num_envs} envs)")
   trained = ppo_phase(env, cfg, os.path.join(build, "ckpt_leg"),
                       steps=LEG_PPO_STEPS)
-  return dict(leg=leg, step_ms=step_ms, launches=leg_launches,
+  return dict(leg=leg, nv=m.nv, nefc=m.plan["constraint"].nefc,
+              step_ms=step_ms, launches=leg_launches,
               ppo=trained["steps"])
+
+
+def manip_phase(dev, build, phase_lib):
+  """Phase 8: the five in-hand manipulation envs at batch 4096 through the
+  Newton kernel (each with its profile, the contact stages alone and the
+  kernel's phase split from the clock-stamped library `phase_lib`), their
+  golden replays, and PPO on MtxHandObjHoldRandom-v0. Raises on any failed
+  check; returns the kernel's numbers per shape."""
+  import myosuite_tpu_torch
+  from myosuite_tpu_torch.envs.registry import ASSETS
+  from myosuite_tpu_torch.physics import forward
+  from myosuite_tpu_torch.physics import newton_kernel as nk
+  from myosuite_tpu_torch.train import ppo as ppo_mod
+
+  with np.load(f"{ASSETS}/hand_manip_golden.npz") as z:
+    golden = {k: z[k] for k in z.files}
+  shapes = []
+  for obj, name, golden_name, golden_overrides in MANIP:
+    env = myosuite_tpu_torch.make(name)
+    m = env.model
+    gen = torch.Generator(dev).manual_seed(0)
+    t0 = time.perf_counter()
+    state = env.reset(gen, BATCH)
+    torch.cuda.synchronize()
+    nefc = m.plan["constraint"].nefc
+    classes = ", ".join(f"{g.key[0].name.lower()}-{g.key[1].name.lower()} "
+                        f"x{len(g.g1)}" for g in m.plan["collision"].groups)
+    print(f"phase 8 manipulation: {name} reset at batch {BATCH} in "
+          f"{time.perf_counter() - t0:.2f} s; nv {m.nv}, nefc {nefc}, "
+          f"contact slots {m.ncon_max} ({classes})")
+    _, state = control_steps(env, state, gen, 2)        # warm-up
+    nk.launches = 0
+    step_ms, state = control_steps(env, state, gen, MANIP_STEPS)
+    launches = nk.launches
+    obs, d = state.obs["state"], state.data
+    finite = bool(torch.isfinite(obs).all() & torch.isfinite(state.reward)
+                  .all())
+    print(f"  {MANIP_STEPS} control steps: {step_ms:.2f} ms per control "
+          f"step, {BATCH / step_ms * 1e3:.0f} env-steps/s; kernel launches "
+          f"{launches} ({launches / MANIP_STEPS:g} per control step); obs "
+          f"{tuple(obs.shape)} and reward finite {finite}; mean ncon_active "
+          f"{float(d.ncon_active.float().mean()):.3f} of {m.ncon_max}; "
+          f"done {float(state.done.mean()):.3f}")
+    if launches != MANIP_STEPS * env._n_substeps:
+      raise AssertionError(f"{name}: kernel launched {launches} times, want "
+                           f"{MANIP_STEPS * env._n_substeps}")
+    if not finite:
+      raise AssertionError(f"{name}: non-finite observations or rewards")
+    action = torch.rand(BATCH, env.action_size, generator=gen, device=dev)
+    busy, n_launch = step_profile(env, state, action, step_ms)
+    col_ms, efc_ms = contact_stages(m, d, step_ms, env._n_substeps)
+    # the kernel against its plain version at this env's own inputs, those
+    # of the substep after the rollout's last
+    args, kw = forward.solve_inputs(m, d)
+    k = kernel_numbers(f"{obj} batch {BATCH}", args, kw)
+    phase_split(f"{obj} kernel, batch {BATCH}",
+                nk.phase_cycles(*args, **kw, lib=phase_lib), nk.PHASES)
+    if k["max_abs"] != 0.0:
+      raise AssertionError(f"{name}: the kernel is not bit-equal to its "
+                           f"plain version ({k['max_abs']})")
+    shapes.append(dict(env=name, nv=m.nv, nefc=nefc, ms=k["ms"],
+                       launches=launches, max_abs_err=k["max_abs"],
+                       bound_ms=k["bound_ms"], bound_by=k["bound_by"],
+                       plain_ms=k["plain_ms"], step_ms=step_ms,
+                       blocks_per_sm=k["blocks_per_sm"],
+                       envs_per_block=k["epb"], busy_ms=busy,
+                       launches_per_substep=n_launch / env._n_substeps,
+                       collision_ms=col_ms, make_efc_ms=efc_ms))
+    del env, state, d, args, k, action
+    genv = myosuite_tpu_torch.make(golden_name, overrides=golden_overrides)
+    gstate = genv.reset(torch.Generator(dev).manual_seed(0),
+                        golden["actions"].shape[1])
+    check_golden(f"  golden {obj}", genv, gstate, golden, f"{obj}_")
+
+  # PPO on the slice's headline env
+  env = myosuite_tpu_torch.make("MtxHandObjHoldRandom-v0")
+  cfg = ppo_mod.default_config()
+  print(f"  PPO: MtxHandObjHoldRandom-v0 at default_config() "
+        f"({cfg.num_envs} envs)")
+  trained = ppo_phase(env, cfg, os.path.join(build, "ckpt_hold"), steps=1)
+  return dict(shapes=shapes, ppo=trained["steps"])
 
 
 def main():
@@ -524,6 +636,7 @@ def main():
   from myosuite_tpu_torch.physics import newton_kernel as nk
 
   dev = torch.device("cuda")
+  t_start = time.perf_counter()
   smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, check=True).stdout.strip().splitlines()[0]
@@ -588,15 +701,7 @@ def main():
   if not bool(torch.isfinite(obs).all()):
     raise AssertionError("non-finite observations")
   action = torch.rand(BATCH, env.action_size, generator=gen, device=dev)
-  busy, prof_wall, n_launch, top = profile_call(
-      lambda: env.step(state, action))
-  step_ms = wall / STEPS * 1e3
-  print(f"  profile of one control step: device busy {busy:.2f} ms "
-        f"({prof_wall:.2f} ms wall under the profiler), {n_launch} kernel "
-        f"launches; idle share of the unprofiled step "
-        f"{max(0.0, 1.0 - busy / step_ms):.3f}")
-  for name, ms_k, n in top:
-    print(f"    {ms_k:.3f} ms in {n} launches: {name}")
+  step_profile(env, state, action, wall / STEPS * 1e3)
 
   # kernel vs plain version at the main path's shapes, and their times
   args, kw = forward.solve_inputs(env.model, state.data)
@@ -643,10 +748,14 @@ def main():
   learn_phase(dev, os.path.join(build, "ckpt_elbow"))
 
   # 7. contacts: the leg
-  contact_phase(dev, build)
+  leg = contact_phase(dev, build)
+
+  # 8. in-hand manipulation
+  manip = manip_phase(dev, build, phase_lib)
 
   # the card again, on one of the last lines (the head of a long output
   # may be cut off where it is read)
+  print(f"phases 1-8 in {time.perf_counter() - t_start:.0f} s")
   print(f"nvidia-smi: {smi}")
   print(json.dumps({"kernels": [{
       "name": "newton_solver", "route": "cuda",
@@ -657,7 +766,20 @@ def main():
       "launches_per_control_step": launches / STEPS,
       "max_abs_err": hand["max_abs"], "ms": ms,
       "plain_ms": hand["plain_ms"], "bound_ms": hand["bound_ms"],
-      "bound_by": hand["bound_by"], "library_ms": None}]}))
+      "bound_by": hand["bound_by"], "library_ms": None,
+      "shapes": [dict(nv=env.model.nv,
+                      nefc=env.model.plan["constraint"].nefc,
+                      env="MtxHandReachRandom-v0", ms=ms,
+                      launches=launches, max_abs_err=hand["max_abs"],
+                      bound_ms=hand["bound_ms"], plain_ms=hand["plain_ms"]),
+                 dict(nv=leg["nv"], nefc=leg["nefc"], env="MtxLegWalk-v0",
+                      ms=leg["leg"]["ms"], launches=leg["launches"],
+                      max_abs_err=leg["leg"]["max_abs"],
+                      bound_ms=leg["leg"]["bound_ms"],
+                      plain_ms=leg["leg"]["plain_ms"])]
+      + [{k: s[k] for k in ("nv", "nefc", "env", "ms", "launches",
+                            "max_abs_err", "bound_ms", "plain_ms")}
+         for s in manip["shapes"]]}]}))
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

@@ -29,10 +29,12 @@
 // chains, not instruction issue, set most of its time; four blocks of
 // 8 warps (64 registers at most) make batch 4096 one wave.
 //
-// Design: one warp per env, a few envs per block. Lane r owns element r of
-// every nv-vector, held in a register (so nv <= 32); dot products are
-// reduced with __shfl_xor_sync, whose butterfly gives every lane the same
-// sum, so the warp's branches on costs stay uniform. Inputs are
+// Design: one warp per env, a few envs per block. Lane r owns elements r
+// and, past nv 32, r + 32 of every nv-vector, held in registers (a `Vec`
+// of one or two halves, so nv <= 40); a dot product adds the lane's
+// products, half 0 then half 1, and reduces with __shfl_xor_sync, whose
+// butterfly gives every lane the same sum, so the warp's branches on costs
+// stay uniform. Inputs are
 // batch-first, so one env's (nv, nv) block is contiguous and a warp's
 // loads coalesce. What the design does to shorten and thin the chains:
 // - J x, qM x and the cost sums give each lane a row and read it 16 bytes
@@ -101,6 +103,45 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// A lane's share of an nv-vector: h[i] is element lane + 32 i. One half up
+// to nv 32, two up to nv 40 (the tile's TI 5).
+template <int NH>
+struct Vec {
+  float h[NH];
+};
+__host__ __device__ constexpr int halves(int ti) { return ti > 4 ? 2 : 1; }
+
+// g[lane + 32 i], 0 past nv
+template <int NH>
+__device__ __forceinline__ Vec<NH> load_vec(const float* g, int nv,
+                                            int lane) {
+  Vec<NH> v;
+#pragma unroll
+  for (int i = 0; i < NH; ++i)
+    v.h[i] = lane + 32 * i < nv ? g[lane + 32 * i] : 0.f;
+  return v;
+}
+
+template <int NH>
+__device__ __forceinline__ void store_vec(float* g, const Vec<NH>& v, int nv,
+                                          int lane) {
+#pragma unroll
+  for (int i = 0; i < NH; ++i)
+    if (lane + 32 * i < nv) g[lane + 32 * i] = v.h[i];
+}
+
+// The lane's part of sum_k a_k b_k before the butterfly: its element of
+// half 0, plus that of half 1 where it lies below nv
+template <int NH>
+__device__ __forceinline__ float lane_dot(const Vec<NH>& a, const Vec<NH>& b,
+                                          int nv, int lane) {
+  float acc = lane < nv ? a.h[0] * b.h[0] : 0.f;
+#pragma unroll
+  for (int i = 1; i < NH; ++i)
+    if (lane + 32 * i < nv) acc = acc + a.h[i] * b.h[i];
+  return acc;
+}
+
 // One env's shared memory, in floats: qM (nv rows) and J (nefc rows) of
 // stride ld, a multiple of 4 whose quotient is odd, so that a lane reading
 // its own row 16 bytes at a time meets no bank conflict (columns nv..ld are
@@ -147,10 +188,16 @@ struct Sys {
   }
 };
 
-// x (one element per lane) into the staging slot, zero past nv
-__device__ __forceinline__ void stage(const Sys& s, float x, int lane) {
+// x into the staging slot, zero past nv
+template <int NH>
+__device__ __forceinline__ void stage(const Sys& s, const Vec<NH>& x,
+                                      int lane) {
   __syncwarp();   // the last readers of the slot are done
-  if (lane < 4 * s.nq()) s.xs()[lane] = lane < s.nv ? x : 0.f;
+#pragma unroll
+  for (int i = 0; i < NH; ++i) {
+    const int r = lane + 32 * i;
+    if (r < 4 * s.nq()) s.xs()[r] = r < s.nv ? x.h[i] : 0.f;
+  }
   __syncwarp();
 }
 
@@ -171,24 +218,42 @@ __device__ __forceinline__ float row_dot(const Sys& s, const float* row) {
   return acc;
 }
 
-// lane r < nv: sum_k qM[r, k] x_k, x distributed one element per lane
-__device__ __forceinline__ float matvec(const Sys& s, float x, int lane) {
-  stage(s, x, lane);
-  return lane < s.nv ? row_dot(s, s.M() + lane * s.ld) : 0.f;
+// the lane's rows of the staged vector times qM: sum_k qM[r, k] xs_k for
+// r = lane + 32 i < nv
+template <int NH>
+__device__ __forceinline__ Vec<NH> qM_rows(const Sys& s, int lane) {
+  Vec<NH> y;
+#pragma unroll
+  for (int i = 0; i < NH; ++i) {
+    const int r = lane + 32 * i;
+    y.h[i] = r < s.nv ? row_dot(s, s.M() + r * s.ld) : 0.f;
+  }
+  return y;
 }
 
-// acc + sum_b J[e0 + b, r] f_b on lane r < nv, over the lanes b whose row
-// force f is nonzero, in ascending rows
-__device__ __forceinline__ float add_rows_t(const Sys& s, int e0, float f,
-                                            float acc, int lane) {
+// qM x
+template <int NH>
+__device__ __forceinline__ Vec<NH> matvec(const Sys& s, const Vec<NH>& x,
+                                          int lane) {
+  stage(s, x, lane);
+  return qM_rows<NH>(s, lane);
+}
+
+// acc + sum_b J[e0 + b, r] f_b for r = lane + 32 i < nv, over the lanes b
+// whose row force f is nonzero, in ascending rows
+template <int NH>
+__device__ __forceinline__ void add_rows_t(const Sys& s, int e0, float f,
+                                           Vec<NH>& acc, int lane) {
   unsigned m = __ballot_sync(kFull, f != 0.f);
   while (m) {
     const int b = __ffs(m) - 1;
     m &= m - 1;
     const float fb = __shfl_sync(kFull, f, b);
-    if (lane < s.nv) acc += s.J()[(e0 + b) * s.ld + lane] * fb;
+    const float* Je = s.J() + (e0 + b) * s.ld;
+#pragma unroll
+    for (int i = 0; i < NH; ++i)
+      if (lane + 32 * i < s.nv) acc.h[i] += Je[lane + 32 * i] * fb;
   }
-  return acc;
 }
 
 __device__ __forceinline__ void row_force(const Sys& s, int e, float jar,
@@ -221,12 +286,15 @@ __device__ __forceinline__ float row_cost(const Sys& s, int e, float jar) {
 // all lanes; leaves qM (a - as) in mda (lane r) and J a - aref in jar, which
 // the next iteration starts from if the point is taken. The two warp sums
 // sit side by side so that their shuffle chains overlap.
-__device__ __forceinline__ float total_cost(const Sys& s, float a, float as,
-                                            int lane, float* jar,
-                                            float& mda) {
-  const float da = a - as;
+template <int NH>
+__device__ __forceinline__ float total_cost(const Sys& s, const Vec<NH>& a,
+                                            const Vec<NH>& as, int lane,
+                                            float* jar, Vec<NH>& mda) {
+  Vec<NH> da;
+#pragma unroll
+  for (int i = 0; i < NH; ++i) da.h[i] = a.h[i] - as.h[i];
   mda = matvec(s, da, lane);
-  const float qpart = lane < s.nv ? da * mda : 0.f;
+  const float qpart = lane_dot(da, mda, s.nv, lane);
   stage(s, a, lane);
   float c = 0.f;
   for (int e = lane; e < s.nefc; e += 32) {
@@ -278,18 +346,22 @@ __device__ __forceinline__ void tile_add_diag(float (&A)[TI][2 * TI],
 // S[i][j] -= L[i][k] L[j][k] for j > k, so each entry subtracts over k
 // ascending. Column k lives in lanes lc = k % 4, at register column k / 4,
 // its row i in lane i % 8 + 8 lc at register row i / 8: it is gathered to
-// one row per lane (lane q holds row q), so each lane divides once, and
-// broadcast back to the tile by row (lane lr + 8 ii) and by column (lane
-// lc + 4 jj). Register indices must be compile-time constants, so the
+// one row per lane and half (lane q holds rows q and q + 32, as a Vec), so
+// each lane divides once per half, and broadcast back to the tile by row
+// (lane lr + 8 (ii % 4), half ii / 4) and by column (lane (lc + 4 jj) % 32,
+// half jj / 8). Register indices must be compile-time constants, so the
 // loop over k / 4 is unrolled and the four steps inside it are not
 // (unrolling all of them measured slower: more code, more spills). The
-// forward substitution L y = b rides along: lane q holds b_q, and at step
-// k lane k divides by L[k][k] and the lanes below subtract L[q][k] y_k,
-// the order of the plain version's column sweep.
+// forward substitution L y = b rides along: lane q holds b_q (and
+// b_{q+32}), and at step k the lane of row k divides by L[k][k] and the
+// rows below subtract L[q][k] y_k, the order of the plain version's column
+// sweep.
 template <int TI>
 __device__ __forceinline__ void tile_chol(float (&A)[TI][2 * TI], int nv,
-                                          int lr, int lc, float& b) {
+                                          int lr, int lc,
+                                          Vec<halves(TI)>& b) {
   constexpr int TJ = 2 * TI;
+  constexpr int NH = halves(TI);
   const int lane = lr + 8 * lc;
 #pragma unroll
   for (int kj = 0; kj < TJ; ++kj) {
@@ -298,28 +370,37 @@ __device__ __forceinline__ void tile_chol(float (&A)[TI][2 * TI], int nv,
       const int k = 4 * kj + kc;
       const float piv = __shfl_sync(kFull, A[kj >> 1][kj], (k & 7) + 8 * kc);
       const float d = sqrtf(fmaxf(piv, kEps));
-      float sq = 0.f;   // S[q][k], q = lane; rows above k are not needed
+      // S[q + 32 h][k], q = lane; rows above k are not needed
+      float sq[NH];
+#pragma unroll
+      for (int h = 0; h < NH; ++h) sq[h] = 0.f;
 #pragma unroll
       for (int ii = 0; ii < TI; ++ii)
         if (8 * ii + 7 >= 4 * kj) {
           const float v = __shfl_sync(kFull, A[ii][kj], lr + 8 * kc);
-          if (lc == ii) sq = v;
+          if (lc == (ii & 3)) sq[ii >> 2] = v;
         }
-      const float lq = sq / d;
+      float lq[NH];
+#pragma unroll
+      for (int h = 0; h < NH; ++h) lq[h] = sq[h] / d;
       float li[TI], lj[TJ];
 #pragma unroll
       for (int ii = 0; ii < TI; ++ii)
         if (8 * ii + 7 >= 4 * kj) {
-          li[ii] = __shfl_sync(kFull, lq, lr + 8 * ii);
+          li[ii] = __shfl_sync(kFull, lq[ii >> 2], lr + 8 * (ii & 3));
           if (lc == kc) A[ii][kj] = li[ii];
         }
 #pragma unroll
       for (int jj = kj; jj < TJ; ++jj)
-        lj[jj] = __shfl_sync(kFull, lq, lc + 4 * jj);
-      // after the broadcasts, so that their latency overlaps lane k's division
-      if (lane == k) b = b / lq;
-      const float yk = __shfl_sync(kFull, b, k);
-      if (lane > k) b = b - lq * yk;
+        lj[jj] = __shfl_sync(kFull, lq[jj >> 3], lc + 4 * (jj & 7));
+      // after the broadcasts, so that their latency overlaps the division of
+      // row k's lane; k / 32 = kj / 8
+      const int kh = kj >> 3;   // a constant once kj is unrolled
+      if (lane == k - 32 * kh) b.h[kh] = b.h[kh] / lq[kh];
+      const float yk = __shfl_sync(kFull, b.h[kh], k - 32 * kh);
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+        if (lane + 32 * h > k) b.h[h] = b.h[h] - lq[h] * yk;
 #pragma unroll
       for (int ii = 0; ii < TI; ++ii)
 #pragma unroll
@@ -345,44 +426,61 @@ __device__ __forceinline__ void tile_store(const float (&A)[TI][2 * TI],
     }
 }
 
-// Solve L^T x = y with L packed by rows in H; y and x one element per
-// lane.
-__device__ __forceinline__ float chol_back(const float* L, int nv, float y,
-                                           int lane) {
-  const float dg = lane < nv ? L[tri(lane) + lane] : 1.f;
-  float s = y;
-  for (int i = nv - 1; i >= 0; --i) {
-    if (lane == i) s = s / dg;
-    const float xi = __shfl_sync(kFull, s, i);
-    if (lane < i) s -= L[tri(i) + lane] * xi;
+// Solve L^T x = y with L packed by rows in H; y and x as Vecs. Rows
+// 32..nv-1 (half 1) are taken first, so that the half a step divides in is
+// known at compile time.
+template <int NH>
+__device__ __forceinline__ Vec<NH> chol_back(const float* L, int nv,
+                                             Vec<NH> s, int lane) {
+  float dg[NH];
+#pragma unroll
+  for (int h = 0; h < NH; ++h) {
+    const int r = lane + 32 * h;
+    dg[h] = r < nv ? L[tri(r) + r] : 1.f;
   }
-  return lane < nv ? s : 0.f;
+#pragma unroll
+  for (int h = NH - 1; h >= 0; --h) {
+    for (int i = min(nv, 32 * (h + 1)) - 1; i >= 32 * h; --i) {
+      if (lane == i - 32 * h) s.h[h] = s.h[h] / dg[h];
+      const float xi = __shfl_sync(kFull, s.h[h], i - 32 * h);
+#pragma unroll
+      for (int g = 0; g <= h; ++g)
+        if (lane + 32 * g < i) s.h[g] -= L[tri(i) + lane + 32 * g] * xi;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+    if (lane + 32 * h >= nv) s.h[h] = 0.f;
+  return s;
 }
 
-// Factor the tile, with the forward substitution of b (one element per
-// lane, which becomes y), and leave the factor in H.
+// Factor the tile, with the forward substitution of b (which becomes y),
+// and leave the factor in H.
 template <int TI>
 __device__ __forceinline__ void tile_factor(float (&A)[TI][2 * TI], float* H,
                                             int nv, int lr, int lc,
-                                            float& b) {
+                                            Vec<halves(TI)>& b) {
   tile_chol<TI>(A, nv, lr, lc, b);
   __syncwarp();   // the last solve has read H
   tile_store<TI>(A, H, nv, lr, lc);
   __syncwarp();
 }
 
-// A^-1 b for the tile A and b one element per lane
+// A^-1 b for the tile A
 template <int TI>
-__device__ __forceinline__ float tile_solve(float (&A)[TI][2 * TI], float* H,
-                                            int nv, int lr, int lc,
-                                            float b) {
+__device__ __forceinline__ Vec<halves(TI)> tile_solve(
+    float (&A)[TI][2 * TI], float* H, int nv, int lr, int lc,
+    Vec<halves(TI)> b) {
   tile_factor<TI>(A, H, nv, lr, lc, b);
   return chol_back(H, nv, b, lr + 8 * lc);
 }
 
 // TI = ceil(nv / 8) rows of tile per lane. At TI <= 3 (nv <= 24) the
 // launch bounds cap registers at 64, so 4 blocks of 8 warps share an SM:
-// batch 4096 is one wave on 132 SMs.
+// batch 4096 is one wave on 132 SMs. TI 5 (nv 33..40) asks for one block
+// per SM, so registers are capped at 255 and nothing spills; its shared
+// memory allows one block per SM at any nefc anyway (two blocks of 8 envs
+// would need nefc <= ~30).
 template <int TI, int MIN_BLOCKS>
 __global__ void __launch_bounds__(256, MIN_BLOCKS) newton_solve_kernel(
     const float* __restrict__ qM, const float* __restrict__ J,
@@ -395,6 +493,7 @@ __global__ void __launch_bounds__(256, MIN_BLOCKS) newton_solve_kernel(
     unsigned long long* __restrict__ cycles, int batch, int nv, int nefc,
     int nfr, int iterations, int ls_iterations) {
   constexpr int TJ = 2 * TI;
+  constexpr int NH = halves(TI);
   extern __shared__ float4 smem4[];   // float4: 16-byte aligned
   float* smem = reinterpret_cast<float*>(smem4);
   const int warps = blockDim.x >> 5;
@@ -435,18 +534,18 @@ __global__ void __launch_bounds__(256, MIN_BLOCKS) newton_solve_kernel(
   float A[TI][TJ];
 
   // 1. a_smooth
+  const Vec<NH> qfs_r = load_vec<NH>(qfs + v0, nv, lane);
   tile_load<TI>(A, M, ld, nv, lr, lc);
-  const float as = tile_solve<TI>(A, s.H(), nv, lr, lc,
-                                 lane < nv ? qfs[v0 + lane] : 0.f);
+  const Vec<NH> as = tile_solve<TI>(A, s.H(), nv, lr, lc, qfs_r);
   PHASE(kSmooth);
 
   // 2. warm start. The current point a comes with its cost, qM (a - as)
   // and J a - aref (in buffer s.jar(cur)), from the test that took it.
-  const float warm_r = lane < nv ? warm[v0 + lane] : 0.f;
-  float mda, mda_s;
+  const Vec<NH> warm_r = load_vec<NH>(warm + v0, nv, lane);
+  Vec<NH> mda, mda_s;
   float cost = total_cost(s, warm_r, as, lane, s.jar(0), mda);
   const float cost_s = total_cost(s, as, as, lane, s.jar(1), mda_s);
-  float a = warm_r;
+  Vec<NH> a = warm_r;
   int cur = 0;
   if (!(cost < cost_s)) {
     a = as;
@@ -459,7 +558,7 @@ __global__ void __launch_bounds__(256, MIN_BLOCKS) newton_solve_kernel(
   // 3. Newton iterations
   for (int it = 0; it < iterations; ++it) {
     const float* jar = s.jar(cur);
-    float jtf = 0.f;
+    Vec<NH> grad = {};
     for (int e0 = 0; e0 < nefc; e0 += 32) {
       const int e = e0 + lane;
       float f = 0.f, w = 0.f;
@@ -467,9 +566,10 @@ __global__ void __launch_bounds__(256, MIN_BLOCKS) newton_solve_kernel(
         row_force(s, e, jar[e], &f, &w);
         s.wt()[e] = w;
       }
-      jtf = add_rows_t(s, e0, f, jtf, lane);
+      add_rows_t(s, e0, f, grad, lane);   // J^T f
     }
-    const float grad = mda - jtf;
+#pragma unroll
+    for (int i = 0; i < NH; ++i) grad.h[i] = mda.h[i] - grad.h[i];
     PHASE(kForces);
 
     // H = (J^T W J + qM) + 1e-8 I over the rows of nonzero weight
@@ -511,18 +611,20 @@ __global__ void __launch_bounds__(256, MIN_BLOCKS) newton_solve_kernel(
       tile_add_diag<TI>(A, ridge, lr, lc);
     }
     PHASE(kHessian);
-    float y = grad;
-    tile_factor<TI>(A, s.H(), nv, lr, lc, y);
+    Vec<NH> p = grad;
+    tile_factor<TI>(A, s.H(), nv, lr, lc, p);
     PHASE(kChol);
-    const float p = -chol_back(s.H(), nv, y, lane);
+    p = chol_back(s.H(), nv, p, lane);
+#pragma unroll
+    for (int i = 0; i < NH; ++i) p.h[i] = -p.h[i];
     PHASE(kSolve);
 
     stage(s, p, lane);   // J p and qM p from one staging of p
     for (int e = lane; e < nefc; e += 32)
       s.jp()[e] = row_dot(s, s.J() + e * ld);
-    const float mp = lane < nv ? row_dot(s, M + lane * ld) : 0.f;
-    const float g0 = warp_sum(lane < nv ? p * mda : 0.f);
-    const float pmp = warp_sum(lane < nv ? p * mp : 0.f);
+    const Vec<NH> mp = qM_rows<NH>(s, lane);
+    const float g0 = warp_sum(lane_dot(p, mda, nv, lane));
+    const float pmp = warp_sum(lane_dot(p, mp, nv, lane));
     float alpha = 1.f;
     for (int ls = 0; ls < ls_iterations; ++ls) {
       float sf = 0.f, sw = 0.f;
@@ -537,9 +639,11 @@ __global__ void __launch_bounds__(256, MIN_BLOCKS) newton_solve_kernel(
       const float ddphi = pmp + warp_sum(sw);
       alpha = fminf(fmaxf(alpha - dphi / fmaxf(ddphi, kEps), 0.f), 4.f);
     }
-    const float a_new = a + alpha * p;
+    Vec<NH> a_new;
+#pragma unroll
+    for (int i = 0; i < NH; ++i) a_new.h[i] = a.h[i] + alpha * p.h[i];
     PHASE(kLineSearch);
-    float mda_new;
+    Vec<NH> mda_new;
     const float cost_new =
         total_cost(s, a_new, as, lane, s.jar(cur ^ 1), mda_new);
     if (cost_new <= cost) {
@@ -553,7 +657,7 @@ __global__ void __launch_bounds__(256, MIN_BLOCKS) newton_solve_kernel(
 
   // 4. final forces and qfrc
   const float* jar = s.jar(cur);
-  float qfrc_r = 0.f;
+  Vec<NH> qfrc_r = {};
   for (int e0 = 0; e0 < nefc; e0 += 32) {
     const int e = e0 + lane;
     float f = 0.f, w;
@@ -561,27 +665,27 @@ __global__ void __launch_bounds__(256, MIN_BLOCKS) newton_solve_kernel(
       row_force(s, e, jar[e], &f, &w);
       force[r0 + e] = f;
     }
-    qfrc_r = add_rows_t(s, e0, f, qfrc_r, lane);
+    add_rows_t(s, e0, f, qfrc_r, lane);
   }
   PHASE(kFinal);
 
   // 5. implicit-damping Euler solve
   float dr[TI];
-  const float damph_r = lane < nv ? damph[v0 + lane] : 0.f;
+  const Vec<NH> damph_r = load_vec<NH>(damph + v0, nv, lane);
 #pragma unroll
   for (int ii = 0; ii < TI; ++ii)
-    dr[ii] = __shfl_sync(kFull, damph_r, lr + 8 * ii);
+    dr[ii] = __shfl_sync(kFull, damph_r.h[ii >> 2], lr + 8 * (ii & 3));
   tile_load<TI>(A, M, ld, nv, lr, lc);
   tile_add_diag<TI>(A, dr, lr, lc);
-  const float qe = tile_solve<TI>(
-      A, s.H(), nv, lr, lc, (lane < nv ? qfs[v0 + lane] : 0.f) + qfrc_r);
+  Vec<NH> rhs;
+#pragma unroll
+  for (int i = 0; i < NH; ++i) rhs.h[i] = qfs_r.h[i] + qfrc_r.h[i];
+  const Vec<NH> qe = tile_solve<TI>(A, s.H(), nv, lr, lc, rhs);
 
-  if (lane < nv) {
-    qacc[v0 + lane] = a;
-    qfrc[v0 + lane] = qfrc_r;
-    asmooth[v0 + lane] = as;
-    qacc_euler[v0 + lane] = qe;
-  }
+  store_vec(qacc + v0, a, nv, lane);
+  store_vec(qfrc + v0, qfrc_r, nv, lane);
+  store_vec(asmooth + v0, as, nv, lane);
+  store_vec(qacc_euler + v0, qe, nv, lane);
   PHASE(kEuler);
 #ifdef NEWTON_PHASE_CLOCKS
   __syncwarp();
@@ -595,13 +699,16 @@ using Kernel = void (*)(const float*, const float*, const float*,
                         float*, float*, float*, float*, unsigned long long*,
                         int, int, int, int, int, int);
 
-// The instantiation for nv (1..32): TI = ceil(nv / 8)
+constexpr int kMaxNv = 40;
+
+// The instantiation for nv (1..kMaxNv): TI = ceil(nv / 8)
 Kernel kernel_for(int nv) {
   switch ((nv + 7) / 8) {
     case 1: return newton_solve_kernel<1, 4>;
     case 2: return newton_solve_kernel<2, 4>;
     case 3: return newton_solve_kernel<3, 4>;
-    default: return newton_solve_kernel<4, 2>;
+    case 4: return newton_solve_kernel<4, 2>;
+    default: return newton_solve_kernel<5, 1>;
   }
 }
 
@@ -617,7 +724,7 @@ int newton_solve_smem_per_env(int nv, int nefc) {
 // Blocks of `envs_per_block` envs that fit on one SM at once, or a
 // negative CUDA error.
 int newton_solve_occupancy(int nv, int nefc, int envs_per_block) {
-  if (nv < 1 || nv > 32 || nefc < 0 || envs_per_block < 1 ||
+  if (nv < 1 || nv > kMaxNv || nefc < 0 || envs_per_block < 1 ||
       envs_per_block > 8)
     return -(int)cudaErrorInvalidValue;
   const Kernel kernel = kernel_for(nv);
@@ -647,7 +754,7 @@ int newton_solve_f32(const void* qM, const void* J, const void* aref,
                      int ls_iterations, int envs_per_block, void* cycles,
                      void* stream) {
   if (batch <= 0) return 0;
-  if (nv < 1 || nv > 32 || nefc < 0 || envs_per_block < 1 ||
+  if (nv < 1 || nv > kMaxNv || nefc < 0 || envs_per_block < 1 ||
       envs_per_block > 8)
     return (int)cudaErrorInvalidValue;
   const Kernel kernel = kernel_for(nv);

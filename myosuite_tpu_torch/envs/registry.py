@@ -23,6 +23,9 @@ ELBOW_NPZ = os.path.join(ASSETS, "myoelbow.npz")
 FINGER_NPZ = os.path.join(ASSETS, "myofinger.npz")
 LEG_NPZ = os.path.join(ASSETS, "myoleg.npz")
 LEG_TERRAIN_NPZ = os.path.join(ASSETS, "myoleg_terrain.npz")
+# the in-hand manipulation models, by object (envs/manipulation.py ENVS)
+MANIP_NPZ = {obj: os.path.join(ASSETS, f"myohand_{obj}.npz")
+             for obj in ("hold", "die", "pen", "baoding", "key")}
 
 # order of the reward weights stored under "<prefix>reward_weights"
 REACH_REWARDS = ("reach", "bonus", "penalty")
@@ -126,6 +129,29 @@ def walk_config_from_npz(extra: Dict[str, np.ndarray],
   return cfg
 
 
+def manip_config_from_npz(extra: Dict[str, np.ndarray],
+                          p: str = "cfg_manip_") -> Dict[str, Any]:
+  """Manipulation env config from the "<p>*" arrays of a model file:
+  integers (site ids, joint addresses, max_episode_steps) as int, other
+  scalars as float, vectors as tuples, the reward names and weights as
+  the ordered dict `reward_weights`."""
+  cfg: Dict[str, Any] = dict(norm_actions=True)
+  for key, v in extra.items():
+    if not key.startswith(p) or key in (p + "reward_names",
+                                        p + "reward_weights"):
+      continue
+    k = key[len(p):]
+    if v.ndim:
+      cfg[k] = tuple(map(float, v))
+    elif np.issubdtype(v.dtype, np.integer):
+      cfg[k] = int(v)
+    else:
+      cfg[k] = float(v)
+  cfg["reward_weights"] = dict(zip(map(str, extra[p + "reward_names"]),
+                                   map(float, extra[p + "reward_weights"])))
+  return cfg
+
+
 def _reach(path, prefix, device, overrides, fixed=False):
   from myosuite_tpu_torch.envs.reach import ReachEnv
   model, extra = physics_io.load_model(path, device)
@@ -167,6 +193,14 @@ def _leg(device, overrides, kind="walk"):
   return locomotion.WalkEnv(model, {**cfg, **overrides})
 
 
+def _manip(obj, device, overrides, fixed=False):
+  """The in-hand manipulation task of the model file of `obj`."""
+  from myosuite_tpu_torch.envs import manipulation
+  model, extra = physics_io.load_model(MANIP_NPZ[obj], device)
+  cfg = dict(manip_config_from_npz(extra), fixed_target=fixed)
+  return manipulation.ENVS[obj](model, {**cfg, **overrides})
+
+
 def _register_pair(stem, factory, aliases):
   """<stem>{Random,Fixed}-v0 and their aliases (each an alias stem)."""
   for kind, fixed in (("Random", False), ("Fixed", True)):
@@ -193,3 +227,13 @@ for _kind, _alias in (("Rough", "Rough"), ("Hilly", "Hilly"),
   register(f"MtxLegWalk{_kind}-v0", functools.partial(_leg,
                                                       kind=_kind.lower()),
            aliases=(f"myoLeg{_alias}TerrainWalk-v0",))
+_register_pair("MtxHandObjHold", functools.partial(_manip, "hold"),
+               ("myoHandObjHold",))
+register("MtxHandDieReorient-v0", functools.partial(_manip, "die"),
+         aliases=("myoChallengeDieReorientP1-v0", "myoHandReorient-v0"))
+_register_pair("MtxHandPenTwirl", functools.partial(_manip, "pen"),
+               ("myoHandPenTwirl",))
+register("MtxHandBaoding-v0", functools.partial(_manip, "baoding"),
+         aliases=("myoChallengeBaodingP1-v1", "myoHandBaodingRandom-v0"))
+_register_pair("MtxHandKeyTurn", functools.partial(_manip, "key"),
+               ("myoHandKeyTurn",))

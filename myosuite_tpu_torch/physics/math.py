@@ -135,3 +135,11 @@ def inert_vec(inert10: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
   ang = imat_w + cross(h, v[..., 3:])
   lin = mass * v[..., 3:] - cross(h, w)
   return torch.cat([ang, lin], dim=-1)
+
+
+def euler_to_quat(euler: torch.Tensor) -> torch.Tensor:
+  """XYZ-intrinsic Euler angles (..., 3) -> quaternions (..., 4) (MuJoCo's
+  'xyz' eulerseq): q = qx(e0) * qy(e1) * qz(e2)."""
+  axes = torch.eye(3, dtype=euler.dtype, device=euler.device)
+  qx, qy, qz = (axis_angle_to_quat(axes[i], euler[..., i]) for i in range(3))
+  return mul_quat(mul_quat(qx, qy), qz)

@@ -36,7 +36,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-MAX_NV = 32            # one warp lane per dof
+MAX_NV = 40            # lane r holds dofs r and r + 32 (the TI 5 tile)
 ENVS_PER_BLOCK = 8     # warps (envs) per block
 _SMEM_LIMIT = 232448   # dynamic shared memory a block may use on sm_90
 _EPS = 1e-12
@@ -190,14 +190,25 @@ def random_system(rng, nv: int, nefc: int, n_friction: int):
 # the envs per block, a mass matrix with a negative pivot, the pose
 # models' shapes: the elbow (nv 1, one limit row) and the finger (nv 4,
 # four limit rows), where most of the tile is padding, and the myoLeg's
-# (nv 20, 14 joint-limit and 40 contact rows, no friction rows).
+# (nv 20, 14 joint-limit and 40 contact rows, no friction rows). Past 32
+# dofs each lane holds a second element of every vector and the tile has a
+# fifth row block (TI 5): nv 33, 35, 38 and 40, one with friction rows and
+# one with a negative pivot at nv 35; then the in-hand manipulation
+# models' (nv, nefc) with contact rows and no friction rows: KeyTurn
+# (24, 168), ObjHold (29, 83), DieReorient (29, 151), Baoding (35, 147).
 EDGE_CASES = ((5, 9, 3, "some", 5, False), (5, 9, 3, "some", 37, False),
               (5, 70, 3, "some", 37, False), (23, 23, 0, "all", 37, False),
               (23, 23, 0, "none", 37, False), (23, 70, 3, "some", 37, False),
               (32, 9, 0, "some", 37, False), (32, 23, 3, "some", 37, False),
               (32, 70, 3, "all", 37, False), (23, 9, 3, "some", 37, True),
               (1, 1, 0, "all", 37, False), (1, 1, 0, "none", 37, False),
-              (4, 4, 0, "some", 37, False), (20, 54, 0, "some", 37, False))
+              (4, 4, 0, "some", 37, False), (20, 54, 0, "some", 37, False),
+              (33, 9, 0, "some", 37, False), (35, 40, 0, "some", 37, False),
+              (38, 70, 0, "some", 37, False), (40, 23, 0, "all", 37, False),
+              (35, 40, 3, "some", 37, False), (35, 23, 0, "some", 37, True),
+              (24, 168, 0, "some", 37, False), (29, 83, 0, "some", 37, False),
+              (29, 151, 0, "some", 37, False),
+              (35, 147, 0, "some", 37, False))
 
 
 def random_batch(seed: int, nv: int, nefc: int, n_friction: int,
@@ -223,8 +234,8 @@ def _check(qM, J, aref, R, floss, active, warm, qfrc_smooth, damph):
     raise ValueError(f"qM must be (B, nv, nv), got {tuple(qM.shape)}")
   B, nv = qM.shape[0], qM.shape[1]
   if nv > MAX_NV:
-    raise ValueError(f"the Newton kernel takes nv <= {MAX_NV} (one warp "
-                     f"lane per dof); this system has nv = {nv}")
+    raise ValueError(f"the Newton kernel takes nv <= {MAX_NV} (two dofs "
+                     f"per warp lane); this system has nv = {nv}")
   nefc = J.shape[1]
   want = {"J": (B, nefc, nv), "aref": (B, nefc), "R": (B, nefc),
           "floss": (B, nefc), "active": (B, nefc), "warm": (B, nv),

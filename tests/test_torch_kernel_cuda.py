@@ -73,9 +73,11 @@ def test_kernel_matches_plain_synthetic(cuda, batch):
                          ids=lambda c: "nv{}-nefc{}-fr{}-{}-b{}{}".format(
                              *c[:5], "-nonpd" if c[5] else ""))
 def test_kernel_matches_plain_edge_cases(cuda, case):
-  """Every lane of the tile (nv 32), weighted rows past one warp (nefc 70),
-  all or no limit rows active, ragged batches and a negative pivot: the
-  kernel and its plain version round alike, so the outputs are equal."""
+  """Every lane of the tile (nv 32) and past it (nv 33-40: two dofs per
+  lane), weighted rows past one warp (nefc 70) and the manipulation
+  models' 83-168 rows, all or no limit rows active, ragged batches and a
+  negative pivot: the kernel and its plain version round alike, so the
+  outputs are equal."""
   seed = newton_kernel.EDGE_CASES.index(case)
   args = [a.to(cuda) for a in newton_kernel.random_batch(seed, *case)]
   kw = dict(n_friction=case[2], **KW)
@@ -84,6 +86,24 @@ def test_kernel_matches_plain_edge_cases(cuda, case):
   for o, r, name in zip(out, ref, NAMES):
     assert torch.isfinite(o).all(), name
     assert torch.equal(o, r), (name, float((o - r).abs().max()))
+
+
+@pytest.mark.cuda
+def test_kernel_takes_nv_up_to_40(cuda):
+  """nv 40 goes to the kernel (one launch); nv 41 raises, launching
+  nothing and never reaching the plain version."""
+  args = [a.to(cuda) for a in newton_kernel.random_batch(0, 40, 9, 0, "some",
+                                                          3, False)]
+  before = newton_kernel.launches
+  out = newton_kernel.newton_solve(*args, n_friction=0, **KW)
+  torch.cuda.synchronize()
+  assert newton_kernel.launches == before + 1
+  assert all(bool(torch.isfinite(o).all()) for o in out)
+  big = [a.to(cuda) for a in newton_kernel.random_batch(0, 41, 9, 0, "some",
+                                                         3, False)]
+  with pytest.raises(ValueError, match="nv <= 40"):
+    newton_kernel.newton_solve(*big, n_friction=0, **KW)
+  assert newton_kernel.launches == before + 1
 
 
 @pytest.mark.cuda

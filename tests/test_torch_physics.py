@@ -161,11 +161,9 @@ def test_make_efc(xml):
                                  err_msg=name)
 
 
-def test_make_efc_raises_on_contacts():
-  """Named for what it checked before contacts were ported, when make_efc
-  raised for a model with contact slots. It now checks that make_efc
-  gives the elbow contact's pyramidal rows after the limit row
-  (tests/test_torch_contacts.py holds their values against JAX)."""
+def test_make_efc_contact_rows_of_elbow():
+  """make_efc gives the elbow contact's pyramidal rows after the limit
+  row."""
   _, _, tm = _models(MUSCLE_XML)   # its arm capsules have a contact slot
   d = io.make_data(tm, 1, "cpu")
   efc = constraint.make_efc(tm, d)

@@ -169,8 +169,92 @@ def test_newton_solve_dispatch_and_limits():
   for o, r in zip(out, ref):
     assert torch.equal(o, r)
   assert newton_kernel.launches == before   # the CPU path launches nothing
-  big = [torch.zeros(1, 33, 33), torch.zeros(1, 2, 33)] + [
-      torch.zeros(1, 2)] * 4 + [torch.zeros(1, 33)] * 3
-  with pytest.raises(ValueError, match="nv <= 32"):
+  big = [torch.zeros(1, 41, 41), torch.zeros(1, 2, 41)] + [
+      torch.zeros(1, 2)] * 4 + [torch.zeros(1, 41)] * 3
+  with pytest.raises(ValueError, match="nv <= 40"):
     newton_kernel.newton_solve(*big, n_friction=0, iterations=1,
                                ls_iterations=1)
+
+
+def test_reference_matches_xla_past_32_dofs():
+  """Past one warp lane per dof (the kernel holds dofs r and r + 32 in
+  lane r): the Baoding model's shape, nv 35 and nefc 147, here with 3
+  friction rows, against newton_xla. Two Newton iterations of two
+  line-search steps: the unrolled XLA solve at 6 x 6 takes ~20 s to
+  compile on a CPU, and the kernel's 6 x 6 is held against this plain
+  version on the card."""
+  nv, nefc, n_fr = 35, 147, 3
+  args = _systems(6, 4, nv, nefc, n_fr)
+  ours = newton_kernel.newton_solve_reference(
+      *map(torch.from_numpy, args), n_friction=n_fr, iterations=2,
+      ls_iterations=2)
+  is_friction = tuple([True] * n_fr + [False] * (nefc - n_fr))
+
+  def one(qM, J, aref, R, floss, active, warm, qfrc_smooth, damph):
+    from myosuite_tpu.physics import linalg
+    a_smooth = linalg.solve_pd(qM, qfrc_smooth)
+    efc = JaxEfc(J=J, aref=aref, R=R, floss=floss, active=active != 0,
+                 is_friction=np.asarray(is_friction))
+    qacc, qfrc, force = jax_solver.newton_xla(qM, efc, warm, a_smooth, 2, 2)
+    return qacc, qfrc, force, a_smooth
+
+  xla = jax.jit(jax.vmap(one))(*map(jnp.asarray, args))
+  assert (ours[2][:, n_fr:] != 0).any(), "no limit row pushes"
+  for o, x, name in zip(ours, xla, NAMES):
+    np.testing.assert_allclose(o.numpy(), x, rtol=1e-4, atol=1e-4,
+                               err_msg=name)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("nefc,n_fr", [(40, 3), (147, 0)])
+def test_reference_matches_pallas_past_32_dofs(nefc, n_fr):
+  """nv 35 against the Pallas kernel in interpret mode (~70 s per shape on
+  a CPU, hence slow)."""
+  nv = 35
+  args = _systems(8, 4, nv, nefc, n_fr)
+  ours = _reference(args, n_fr)
+  is_friction = tuple([True] * n_fr + [False] * (nefc - n_fr))
+  pallas = pallas_solver.solve_batched(
+      *map(jnp.asarray, args), is_friction=is_friction, iterations=6,
+      ls_iterations=6, interpret=True)
+  for o, p, name in zip(ours, pallas, NAMES):
+    np.testing.assert_allclose(o.numpy(), p, rtol=1e-4, atol=1e-4,
+                               err_msg="pallas " + name)
+
+
+# the EDGE_CASES rows past 32 dofs or 70 rows (the kernel's second half of
+# each vector and the manipulation models' shapes)
+_WIDE_ROWS = [c for c in newton_kernel.EDGE_CASES if c[0] > 32 or c[1] > 70]
+
+
+@pytest.mark.parametrize("case", _WIDE_ROWS,
+                         ids=lambda c: "nv{}-nefc{}-fr{}-{}-b{}{}".format(
+                             *c[:5], "-nonpd" if c[5] else ""))
+def test_reference_edge_rows_solve_their_systems(case):
+  """The plain version on the wide EDGE_CASES rows (the card holds the
+  kernel to it bit for bit): finite outputs, a_smooth and qacc_euler
+  solving their systems (checked in float64), qfrc = J^T force, friction
+  forces within +-floss, limit and contact forces pushing only, and only
+  on active rows."""
+  nv, nefc, n_fr, _, _, non_pd = case
+  seed = newton_kernel.EDGE_CASES.index(case)
+  args = newton_kernel.random_batch(seed, *case)
+  out = newton_kernel.newton_solve_reference(
+      *args, n_friction=n_fr, iterations=6, ls_iterations=6)
+  for o, name in zip(out, NAMES):
+    assert torch.isfinite(o).all(), name
+  qM, J, _, _, floss, active, _, qfs, damph = [a.double() for a in args]
+  qacc, qfrc, force, a_smooth, qacc_euler = [o.double() for o in out]
+  np.testing.assert_allclose(qfrc, torch.einsum("ben,be->bn", J, force),
+                             rtol=1e-5, atol=1e-5 * float(qfrc.abs().max()))
+  assert bool((force[:, :n_fr].abs() <= floss[:, :n_fr] * (1 + 1e-6)).all())
+  assert bool((force[:, n_fr:] >= 0).all())
+  assert bool((force[:, n_fr:][active[:, n_fr:] == 0] == 0).all())
+  ok = slice(1, None) if non_pd else slice(None)   # env 0: clamped pivot
+  for M, x, b, name in ((qM, a_smooth, qfs, "a_smooth"),
+                        (qM + torch.diag_embed(damph), qacc_euler,
+                         qfs + qfrc, "qacc_euler")):
+    M, x, b = M[ok], x[ok], b[ok]
+    res = (torch.einsum("bij,bj->bi", M, x) - b).abs().max()
+    scale = float(M.abs().max() * x.abs().max() + b.abs().max())
+    assert float(res) <= 1e-5 * scale, (name, float(res), scale)

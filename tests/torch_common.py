@@ -5,8 +5,10 @@ field dict, and states, actions and targets are made with numpy.
 """
 
 import dataclasses
+import functools
 
 import jax
+import mujoco
 import numpy as np
 
 from tests.common import MUSCLE_XML
@@ -185,7 +187,60 @@ def leg_terrain_export():
   return torch_io.model_fields(env.mj_model), _walk_cfg(env)
 
 
+# the JAX package's env whose model and task config each manipulation
+# model file holds
+MANIP_IDS = {"hold": "MtxHandObjHoldRandom-v0",
+             "die": "MtxHandDieReorient-v0",
+             "pen": "MtxHandPenTwirlRandom-v0", "baoding": "MtxHandBaoding-v0",
+             "key": "MtxHandKeyTurnRandom-v0"}
+# config entries that are not stored (the model itself, and what the port's
+# registry sets per id)
+_MANIP_SKIP = ("model_xml", "reward_weights", "fixed_target", "norm_actions",
+               "reset_type")
+
+
+def manip_cfg(env, cls, p="cfg_manip_"):
+  """A JAX manipulation env's task config as the "<p>*" arrays of a model
+  file: every scalar and vector entry, the reward names and weights, and
+  the site ids and joint qpos / dof addresses of the port class `cls`'s
+  SITES and JOINTS, looked up with MuJoCo as the JAX env does."""
+  cfg, mj = env.config, env.mj_model
+  out = {}
+  for k in sorted(cfg.keys()):
+    if k in _MANIP_SKIP:
+      continue
+    out[p + k] = np.asarray(cfg[k], dtype=np.int32 if k ==
+                            "max_episode_steps" else np.float64)
+  for name in cls.SITES:
+    sid = mujoco.mj_name2id(mj, mujoco.mjtObj.mjOBJ_SITE, name)
+    assert sid >= 0, name
+    out[p + "site_" + name] = np.asarray(sid, dtype=np.int32)
+  for name in cls.JOINTS:
+    j = mujoco.mj_name2id(mj, mujoco.mjtObj.mjOBJ_JOINT, name)
+    assert j >= 0, name
+    out[p + "qadr_" + name] = np.asarray(mj.jnt_qposadr[j], dtype=np.int32)
+    out[p + "dadr_" + name] = np.asarray(mj.jnt_dofadr[j], dtype=np.int32)
+  names = sorted(cfg.reward_weights.keys())
+  out[p + "reward_names"] = np.asarray(names)
+  out[p + "reward_weights"] = np.asarray(
+      [cfg.reward_weights[k] for k in names], dtype=np.float64)
+  return out
+
+
+def manip_export(obj):
+  """Field dict and task config of the JAX package's manipulation env of
+  `obj` (myosuite_tpu_torch/assets/myohand_<obj>.npz)."""
+  import myosuite_tpu
+  from myosuite_tpu_torch.envs.manipulation import ENVS
+  from myosuite_tpu_torch.physics import io as torch_io
+
+  env = myosuite_tpu.make(MANIP_IDS[obj])
+  return torch_io.model_fields(env.mj_model), manip_cfg(env, ENVS[obj])
+
+
 # committed model file -> the function that exports it afresh
 EXPORTS = {"myohand_reach.npz": hand_reach_export,
            "myoelbow.npz": elbow_export, "myofinger.npz": finger_export,
-           "myoleg.npz": leg_export, "myoleg_terrain.npz": leg_terrain_export}
+           "myoleg.npz": leg_export, "myoleg_terrain.npz": leg_terrain_export,
+           **{f"myohand_{obj}.npz": functools.partial(manip_export, obj)
+              for obj in MANIP_IDS}}
