@@ -6,18 +6,24 @@ its plain PyTorch version on the card, drives the main path
 that every substep's solve went through the kernel, prints the kernel's
 occupancy and its split by phase (from a second, clock-stamped build),
 replays the golden trajectory of the JAX package, trains the hand with PPO
-at its default config (4096 envs; 3 timed training steps, a checkpoint
+at its default config (4096 envs; 2 timed training steps, a checkpoint
 round trip) and shows PPO learning the elbow pose task. Phase 7 drives
 contacts: MtxLegWalk-v0 at batch 4096 (16 timed control steps, its
 profile, the kernel against its plain version at the leg's own solver
 inputs, the leg golden trajectories), MtxLegWalkRough-v0 with a terrain
 per env, and one timed PPO training step on the leg. Phase 8 drives the
-five in-hand manipulation envs at batch 4096 (16 timed control steps
+five in-hand manipulation envs at batch 4096 (8 timed control steps
 each, the kernel against its plain version at each env's own inputs,
 occupancy, golden replays) and one timed PPO training step on
-MtxHandObjHoldRandom-v0. Prints one JSON line of kernel numbers (with a
-`shapes` list per (nv, nefc)) and, last, {"ok": true, "device": {...}}.
-Exits
+MtxHandObjHoldRandom-v0. Phase 9 drives the muscle conditions and the
+rest of myobase at batch 4096: the torso (nv 18), the arm reach (nv 7) and
+the arm pose (nv 27), an ASL posture, the reafferented hand, and the hand
+under sarcopenia and fatigue (16 timed control steps each, the kernel
+against its plain version at each env's own inputs), the sarcopenia
+forces, the plain and the Fati hand in turns, the fatigue state's
+conservation, growth and auto-reset, one timed PPO training step on
+MtxFatiHandReachRandom-v0 and the myobase golden replays. Prints one JSON line of kernel numbers (with a `shapes`
+list per (nv, nefc)) and, last, {"ok": true, "device": {...}}. Exits
 non-zero, with no result line, when any phase fails or when there is no
 CUDA card.
 
@@ -42,10 +48,10 @@ import torch
 
 BATCH = 4096
 STEPS = 16               # bench.py's protocol: 16 control steps
-PPO_STEPS = 3            # timed PPO training steps (phase 5)
+PPO_STEPS = 2            # timed PPO training steps (phase 5)
 LEG_PPO_STEPS = 1        # timed PPO training steps on the leg (phase 7)
-ROUGH_STEPS = 4          # control steps on terrain (phase 7)
-MANIP_STEPS = 16         # control steps of each manipulation env (phase 8)
+ROUGH_STEPS = 2          # control steps on terrain (phase 7)
+MANIP_STEPS = 8          # control steps of each manipulation env (phase 8)
 # phase 8: each model file's env at batch 4096, and its golden env (a Fixed
 # id, or fixed_target=True)
 MANIP = (("hold", "MtxHandObjHoldRandom-v0", "MtxHandObjHoldFixed-v0", None),
@@ -55,6 +61,28 @@ MANIP = (("hold", "MtxHandObjHoldRandom-v0", "MtxHandObjHoldFixed-v0", None),
          ("baoding", "MtxHandBaoding-v0", "MtxHandBaoding-v0",
           {"fixed_target": True}),
          ("key", "MtxHandKeyTurnRandom-v0", "MtxHandKeyTurnFixed-v0", None))
+MYOBASE_STEPS = 16       # control steps of each env of phase 9
+TURN_PAIRS = 6           # phase 9: pairs of plain / Fati hand turns
+TURN_STEPS = 4           # control steps a turn
+# phase 9: the envs at batch 4096 (the first three are the new models)
+MYOBASE = (("torso", "MtxTorsoPoseRandom-v0"),
+           ("armreach", "MtxArmReachRandom-v0"),
+           ("armpose", "MtxArmPoseRandom-v0"),
+           ("asl", "MtxHandPose3Fixed-v0"),
+           ("reaf", "MtxReafHandPoseRandom-v0"),
+           ("sarc", "MtxSarcHandReachRandom-v0"),
+           ("fati", "MtxFatiHandReachRandom-v0"))
+NEW_MODELS = ("torso", "armreach", "armpose")
+# the myobase golden file's envs: tag -> (id, overrides, supplied target),
+# as tests/test_torch_conditions.py::GOLDEN_ENVS writes them
+MYOBASE_GOLDEN = {
+    "torso": ("MtxTorsoPoseFixed-v0", {"reset_type": "none"}, False),
+    "armreach": ("MtxArmReachFixed-v0", None, False),
+    "armpose": ("MtxArmPoseRandom-v0", {"reset_type": "none"}, True),
+    "asl": ("MtxHandPose3Fixed-v0", {"reset_type": "none"}, False),
+    "sarc": ("MtxSarcHandReachFixed-v0", None, False),
+    "reaf": ("MtxReafHandPoseRandom-v0", {"reset_type": "none"}, True),
+    "fati": ("MtxFatiHandReachFixed-v0", None, False)}
 # Kernel vs plain version, on every output: |ours - ref| <= TOL |ref| +
 # TOL max(1, max |ref|). The plain version sums in the kernel's order and the
 # kernel is built without multiply-add contraction, so most outputs agree
@@ -412,21 +440,26 @@ def learn_phase(device, ckpt_dir):
 GOLDEN_FIELDS = ("obs", "reward", "done", "qpos", "qvel", "act")
 
 
-def check_golden(label, env, state, golden, prefix=""):
-  """Step `env` from `state` through the golden actions and hold each field
-  within the tolerance stored beside it (golden[prefix + field] and
+def check_golden(label, env, state, golden, prefix="", actions="actions",
+                 fatigue=False):
+  """Step `env` from `state` through the golden actions (golden[actions])
+  and hold each field (with `fatigue`, MA, MR and MF of info["fatigue"]
+  too) within the tolerance stored beside it (golden[prefix + field] and
   golden["atol_" + prefix + field]); print the largest gaps."""
-  rec = {k: [] for k in GOLDEN_FIELDS}
+  fields = GOLDEN_FIELDS + (("MA", "MR", "MF") if fatigue else ())
+  rec = {k: [] for k in fields}
   dev = state.obs["state"].device
-  for a in golden["actions"]:
+  for a in golden[actions]:
     state = env.step(state, torch.from_numpy(a).to(dev))
-    for k, v in zip(GOLDEN_FIELDS, (state.obs["state"], state.reward,
-                                    state.done, state.data.qpos,
-                                    state.data.qvel, state.data.act)):
+    vals = (state.obs["state"], state.reward, state.done, state.data.qpos,
+            state.data.qvel, state.data.act)
+    if fatigue:
+      vals += tuple(state.info["fatigue"][k] for k in ("MA", "MR", "MF"))
+    for k, v in zip(fields, vals):
       rec[k].append(v.cpu().numpy())
   gaps = {k: float(np.abs(np.stack(v) - golden[prefix + k]).max())
           for k, v in rec.items()}
-  tol = {k: float(golden["atol_" + prefix + k]) for k in GOLDEN_FIELDS}
+  tol = {k: float(golden["atol_" + prefix + k]) for k in fields}
   print(f"{label}: " + ", ".join(f"{k} {v:.3e} (tol {tol[k]:.3e})"
                                  for k, v in gaps.items()))
   for k, v in gaps.items():
@@ -623,6 +656,239 @@ def manip_phase(dev, build, phase_lib):
   return dict(shapes=shapes, ppo=trained["steps"])
 
 
+def sarcopenia_check(label, base_env, sarc_env, data, gen):
+  """The Sarc env's muscle gain and bias fields equal the base model's
+  with the maximum force halved (gainprm / biasprm column 2 where it is
+  > 0, else the scale in column 3, muscles only), and from one state and
+  one control one substep's actuator_force is half the base model's, to
+  1e-6 relative, on every actuator that no force range clamps. Raises
+  on a miss."""
+  from myosuite_tpu_torch.physics import forward
+  from myosuite_tpu_torch.physics.types import GainType
+  base_m, sarc_m = base_env.model, sarc_env.model
+  muscle = np.asarray(base_m.actuator_gaintype) == int(GainType.MUSCLE)
+  for k in ("actuator_gainprm", "actuator_biasprm"):
+    prm = getattr(base_m, k).cpu().numpy()
+    want = prm.copy()
+    pos = muscle & (prm[:, 2] > 0)
+    neg = muscle & (prm[:, 2] <= 0)
+    want[pos, 2] = prm[pos, 2] * np.float32(0.5)
+    want[neg, 3] = prm[neg, 3] * np.float32(0.5)
+    got = getattr(sarc_m, k).cpu().numpy()
+    if not np.array_equal(got, want):
+      raise AssertionError(f"{label}: {k} is not the weakened field")
+  ctrl = torch.rand(data.qpos.shape[0], base_m.nu, generator=gen,
+                    device=data.qpos.device)
+  d = data.replace(ctrl=ctrl)
+  f_base = forward.step_n(base_m, d, 1).actuator_force
+  f_sarc = forward.step_n(sarc_m, d, 1).actuator_force
+  free = torch.as_tensor(np.asarray(base_m.actuator_forcelimited) == 0,
+                         device=ctrl.device)
+  half = 0.5 * f_base[:, free]
+  err = (f_sarc[:, free] - half).abs()
+  rel = float((err / half.abs().clamp(min=1e-30)).max())
+  ok = bool((err <= 1e-6 * half.abs()).all())
+  print(f"  sarcopenia {label}: gain and bias fields weakened "
+        f"({int(pos.sum())} muscles by gainprm[:, 2], {int(neg.sum())} by "
+        f"the scale gainprm[:, 3]); one substep's actuator_force of "
+        f"{int(free.sum())} unclamped actuators = 0.5 x the base model's "
+        f"to {rel:.3e} relative (largest |force| "
+        f"{float(f_base.abs().max()):.2f} N) ok {ok}")
+  if not ok:
+    raise AssertionError(f"{label}: sarcopenia force is not half the base")
+
+
+def fatigue_checks(dev):
+  """Under a constant action of 1.0 for MYOBASE_STEPS control steps of
+  MtxFatiHandReachRandom-v0 at batch 4096: MA + MR + MF within 1e-4 of 1
+  for every muscle; MF never falls, and rises at every step after the
+  first (from rested units the first update leaves MF at 0: it moves by F
+  MA of the units active before it). Then in AutoResetWrapper with
+  max_episode_steps 3: every env at a boundary comes back with MA = 0,
+  MR = 1 and MF = 0, the others keep their MF. Raises on a miss."""
+  import myosuite_tpu_torch
+  from myosuite_tpu_torch.envs.wrappers import AutoResetWrapper
+  env = myosuite_tpu_torch.make("MtxFatiHandReachRandom-v0")
+  gen = torch.Generator(dev).manual_seed(3)
+  state = env.reset(gen, BATCH)
+  full = torch.ones(BATCH, env.action_size, device=dev)
+  worst, prev, means = 0.0, state.info["fatigue"]["MF"], []
+  for t in range(MYOBASE_STEPS):
+    state = env.step(state, full)
+    fat = state.info["fatigue"]
+    worst = max(worst, float((fat["MA"] + fat["MR"] + fat["MF"] - 1)
+                             .abs().max()))
+    mf = fat["MF"]
+    grew = bool((mf > prev).all()) if t else bool((mf == 0).all())
+    if not (bool((mf >= prev).all()) and grew):
+      raise AssertionError(f"fatigue: MF did not rise at step {t}")
+    prev = mf
+    means.append(float(mf.mean()))
+  print(f"  fatigue under action 1.0: |MA + MR + MF - 1| <= {worst:.3e} over "
+        f"{MYOBASE_STEPS} steps x {BATCH} envs x {env.action_size} muscles; "
+        f"mean MF by step " + ", ".join(f"{m:.3e}" for m in means))
+  if not worst <= 1e-4:
+    raise AssertionError(f"fatigue: compartments off 1 by {worst}")
+  wenv = AutoResetWrapper(myosuite_tpu_torch.make(
+      "MtxFatiHandReachRandom-v0", overrides={"max_episode_steps": 3}))
+  state = wenv.reset(gen, BATCH)
+  n_reset = 0
+  age = torch.zeros(BATCH, device=dev)    # control steps into the episode
+  for t in range(5):
+    state = wenv.step(state, full)
+    age = age + 1
+    fat = state.info["fatigue"]
+    boundary = (state.done > 0) | (state.info["truncation"] > 0)
+    rested = ((fat["MA"] == 0).all(1) & (fat["MR"] == 1).all(1)
+              & (fat["MF"] == 0).all(1))
+    n_reset += int(boundary.sum())
+    if not bool(rested[boundary].all()):
+      raise AssertionError(f"fatigue: an env at a boundary kept its fatigue "
+                           f"(step {t})")
+    if not bool((fat["MF"][~boundary & (age >= 2)] > 0).all()):
+      raise AssertionError(f"fatigue: an env lost its fatigue mid-episode "
+                           f"(step {t})")
+    age = torch.where(boundary, torch.zeros_like(age), age)
+  print(f"  fatigue auto-reset, max_episode_steps 3: {n_reset} env "
+        f"boundaries in 5 steps at batch {BATCH}, each back at MA 0, MR 1, "
+        f"MF 0; the others keep theirs")
+  if n_reset < BATCH:
+    raise AssertionError(f"fatigue: only {n_reset} boundaries")
+
+
+def myobase_phase(dev, build, phase_lib):
+  """Phase 9: muscle conditions and myobase at batch 4096 through the
+  Newton kernel (each env's control step, the kernel against its plain
+  version at its own inputs; the new models' profile and phase split),
+  the sarcopenia and fatigue checks, PPO on MtxFatiHandReachRandom-v0 and
+  the myobase golden replays. Raises on any failed check; returns the
+  kernel's numbers per env."""
+  import myosuite_tpu_torch
+  from myosuite_tpu_torch.envs.registry import ASSETS
+  from myosuite_tpu_torch.physics import forward
+  from myosuite_tpu_torch.physics import newton_kernel as nk
+  from myosuite_tpu_torch.train import ppo as ppo_mod
+
+  shapes, last = [], {}
+  for tag, name in MYOBASE:
+    env = myosuite_tpu_torch.make(name)
+    m = env.model
+    gen = torch.Generator(dev).manual_seed(0)
+    t0 = time.perf_counter()
+    state = env.reset(gen, BATCH)
+    torch.cuda.synchronize()
+    nefc = m.plan["constraint"].nefc
+    print(f"phase 9 myobase: {name} ({type(env).__name__}) reset at batch "
+          f"{BATCH} in {time.perf_counter() - t0:.2f} s; nv {m.nv}, nu "
+          f"{m.nu}, nefc {nefc}, contact slots {m.ncon_max}")
+    _, state = control_steps(env, state, gen, 2)        # warm-up
+    nk.launches = 0
+    step_ms, state = control_steps(env, state, gen, MYOBASE_STEPS)
+    launches = nk.launches
+    obs, d = state.obs["state"], state.data
+    finite = bool(torch.isfinite(obs).all() & torch.isfinite(state.reward)
+                  .all())
+    print(f"  {MYOBASE_STEPS} control steps: {step_ms:.2f} ms per control "
+          f"step, {BATCH / step_ms * 1e3:.0f} env-steps/s; kernel launches "
+          f"{launches} ({launches / MYOBASE_STEPS:g} per control step); obs "
+          f"{tuple(obs.shape)} and reward finite {finite}; done "
+          f"{float(state.done.mean()):.3f}")
+    if launches != MYOBASE_STEPS * env._n_substeps:
+      raise AssertionError(f"{name}: kernel launched {launches} times, want "
+                           f"{MYOBASE_STEPS * env._n_substeps}")
+    if not finite:
+      raise AssertionError(f"{name}: non-finite observations or rewards")
+    busy = n_launch = None
+    if tag in NEW_MODELS:
+      action = torch.rand(BATCH, env.action_size, generator=gen, device=dev)
+      busy, n_launch = step_profile(env, state, action, step_ms)
+    args, kw = forward.solve_inputs(m, d)
+    k = kernel_numbers(f"{tag} batch {BATCH}", args, kw)
+    if tag in NEW_MODELS:
+      phase_split(f"{tag} kernel, batch {BATCH}",
+                  nk.phase_cycles(*args, **kw, lib=phase_lib), nk.PHASES)
+    if k["max_abs"] != 0.0:
+      raise AssertionError(f"{name}: the kernel is not bit-equal to its "
+                           f"plain version ({k['max_abs']})")
+    shapes.append(dict(env=name, tag=tag, nv=m.nv, nefc=nefc, ms=k["ms"],
+                       launches=launches, max_abs_err=k["max_abs"],
+                       bound_ms=k["bound_ms"], bound_by=k["bound_by"],
+                       plain_ms=k["plain_ms"], step_ms=step_ms,
+                       blocks_per_sm=k["blocks_per_sm"],
+                       envs_per_block=k["epb"], busy_ms=busy,
+                       launches_per_substep=(None if n_launch is None else
+                                             n_launch / env._n_substeps)))
+    if tag in ("torso", "sarc"):
+      last[tag] = (env, d, gen)
+    del args, k, obs
+
+  # what the fatigue update costs a control step: the plain and the Fati
+  # hand in TURN_PAIRS pairs of turns, the first of each pair alternating,
+  # TURN_STEPS control steps a turn after one unmeasured step
+  turn_env = {who: myosuite_tpu_torch.make(name) for who, name in (
+      ("plain", "MtxHandReachRandom-v0"),
+      ("Fati", "MtxFatiHandReachRandom-v0"))}
+  gen = torch.Generator(dev).manual_seed(4)
+  turn_state = {who: e.reset(gen, BATCH) for who, e in turn_env.items()}
+  ratios = []
+  for p in range(TURN_PAIRS):
+    ms = {}
+    for who in (("plain", "Fati") if p % 2 == 0 else ("Fati", "plain")):
+      _, turn_state[who] = control_steps(turn_env[who], turn_state[who], gen,
+                                         1)
+      ms[who], turn_state[who] = control_steps(
+          turn_env[who], turn_state[who], gen, TURN_STEPS)
+    ratios.append(ms["Fati"] / ms["plain"])
+    print(f"  pair {p}: plain hand {ms['plain']:.2f}, Fati hand "
+          f"{ms['Fati']:.2f} ms per control step")
+  ratio = float(np.median(ratios))
+  print(f"  Fati / plain hand control step: median {ratio:.3f} over "
+        f"{TURN_PAIRS} pairs (Fati slower in {sum(r > 1 for r in ratios)}; "
+        f"{min(ratios):.3f}-{max(ratios):.3f})")
+  del turn_env, turn_state
+
+  # sarcopenia on the card: the hand (gainprm[:, 2] > 0) and the torso
+  # (every muscle through the scale), from the rollouts' last states
+  for tag, base_name, sarc_name in (
+      ("sarc", "MtxHandReachRandom-v0", None),
+      ("torso", None, "MtxSarcTorsoPoseRandom-v0")):
+    env, d, gen = last[tag]
+    base_env = env if base_name is None else myosuite_tpu_torch.make(
+        base_name)
+    sarc_env = env if sarc_name is None else myosuite_tpu_torch.make(
+        sarc_name)
+    sarcopenia_check("hand" if tag == "sarc" else "torso", base_env,
+                     sarc_env, d, gen)
+  last.clear()
+
+  fatigue_checks(dev)
+
+  # PPO on the fatigued hand
+  env = myosuite_tpu_torch.make("MtxFatiHandReachRandom-v0")
+  cfg = ppo_mod.default_config()
+  print(f"  PPO: MtxFatiHandReachRandom-v0 at default_config() "
+        f"({cfg.num_envs} envs)")
+  trained = ppo_phase(env, cfg, os.path.join(build, "ckpt_fati"), steps=1)
+
+  # the myobase golden trajectories of the JAX package, on the card
+  with np.load(f"{ASSETS}/myobase_golden.npz") as z:
+    golden = {k: z[k] for k in z.files}
+  for tag, (name, overrides, target) in MYOBASE_GOLDEN.items():
+    genv = myosuite_tpu_torch.make(name, overrides=overrides)
+    nb = golden[f"{tag}_actions"].shape[1]
+    gstate = genv.reset(torch.Generator(dev).manual_seed(0), nb)
+    if target:
+      cfg_ = genv.config
+      mid = 0.5 * (np.asarray(cfg_["target_jnt_lo"], np.float32)
+                   + np.asarray(cfg_["target_jnt_hi"], np.float32))
+      gstate = gstate.replace(info={**gstate.info, "target_angles":
+                                    torch.from_numpy(mid).to(dev)
+                                    .expand(nb, -1).clone()})
+    check_golden(f"  golden {tag}", genv, gstate, golden, f"{tag}_",
+                 actions=f"{tag}_actions", fatigue=tag == "fati")
+  return dict(shapes=shapes, ppo=trained["steps"])
+
+
 def main():
   parser = argparse.ArgumentParser()
   parser.add_argument("--parent", help="checkout whose Newton kernel to "
@@ -637,6 +903,11 @@ def main():
 
   dev = torch.device("cuda")
   t_start = time.perf_counter()
+  ends = []            # (phase, seconds since the start) at each phase's end
+
+  def mark(n):
+    ends.append((n, time.perf_counter() - t_start))
+
   smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, check=True).stdout.strip().splitlines()[0]
@@ -658,6 +929,7 @@ def main():
     if "Compiling" in line or "registers" in line or "spill" in line:
       print("  ptxas:", line.strip())
 
+  mark(1)
   # 2. kernel against its plain version on synthetic systems
   print("phase 2 kernel vs plain version")
   for seed, case in enumerate(nk.EDGE_CASES):
@@ -669,6 +941,7 @@ def main():
             nk.newton_solve(*args, **kw),
             nk.newton_solve_reference(*args, **kw), TOL)
 
+  mark(2)
   # 3. the main path
   env = myosuite_tpu_torch.make("MtxHandReachRandom-v0")
   gen = torch.Generator(dev).manual_seed(0)
@@ -723,6 +996,7 @@ def main():
   if opts.parent:
     compare_parent(opts.parent, env, state, gen, args, kw, ours, few)
 
+  mark(3)
   # 4. golden trajectory of the JAX package, replayed on the card
   from myosuite_tpu_torch.envs.registry import ASSETS
   with np.load(f"{ASSETS}/hand_reach_golden.npz") as z:
@@ -732,6 +1006,7 @@ def main():
                       golden["actions"].shape[1])
   check_golden("phase 4 golden", genv, gstate, golden)
 
+  mark(4)
   # 5. PPO on the main path at full width
   from myosuite_tpu_torch.train import ppo as ppo_mod
   build = os.path.join(os.path.dirname(os.path.abspath(nk.__file__)),
@@ -742,20 +1017,30 @@ def main():
   trained = ppo_phase(env, cfg, os.path.join(build, "ckpt_hand"))
   launches_ppo = sum(s["launches"] for s in trained["steps"])
 
+  mark(5)
   # 6. PPO learns
   print("phase 6 PPO learns: MtxElbowPoseRandom-v0, "
         + ", ".join(f"{k} {v}" for k, v in LEARN.items()))
   learn_phase(dev, os.path.join(build, "ckpt_elbow"))
 
+  mark(6)
   # 7. contacts: the leg
   leg = contact_phase(dev, build)
 
+  mark(7)
   # 8. in-hand manipulation
   manip = manip_phase(dev, build, phase_lib)
 
+  mark(8)
+  # 9. muscle conditions and myobase
+  myobase = myobase_phase(dev, build, phase_lib)
+
+  mark(9)
+  print("phase ends (s since the start): " + ", ".join(
+      f"{n} {t:.0f}" for n, t in ends))
   # the card again, on one of the last lines (the head of a long output
   # may be cut off where it is read)
-  print(f"phases 1-8 in {time.perf_counter() - t_start:.0f} s")
+  print(f"phases 1-9 in {time.perf_counter() - t_start:.0f} s")
   print(f"nvidia-smi: {smi}")
   print(json.dumps({"kernels": [{
       "name": "newton_solver", "route": "cuda",
@@ -779,7 +1064,8 @@ def main():
                       plain_ms=leg["leg"]["plain_ms"])]
       + [{k: s[k] for k in ("nv", "nefc", "env", "ms", "launches",
                             "max_abs_err", "bound_ms", "plain_ms")}
-         for s in manip["shapes"]]}]}))
+         for s in manip["shapes"]
+         + [s for s in myobase["shapes"] if s["tag"] in NEW_MODELS]]}]}))
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

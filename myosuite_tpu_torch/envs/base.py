@@ -2,7 +2,10 @@
 
 An env holds a `Model` and a plain config dict and steps a `State` whose
 tensors all lead with the env axis. Episode bookkeeping (truncation,
-boundaries) happens on the device with no host round trip.
+boundaries) happens on the device with no host round trip. Two muscle
+conditions live here: sarcopenia, which weakens the model's muscles when
+the config asks for it, and `ReafferentationWrapper`, which sends one
+actuator's command to another.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import torch
 
 from myosuite_tpu_torch.physics import forward as physics_forward
 from myosuite_tpu_torch.physics import io as physics_io
-from myosuite_tpu_torch.physics.types import Data, Model
+from myosuite_tpu_torch.physics.types import Data, GainType, Model
 
 
 @dataclasses.dataclass
@@ -32,6 +35,50 @@ class State:
     return dataclasses.replace(self, **kw)
 
 
+def _apply_sarcopenia(model: Model, weakness: float) -> Model:
+  """The model with its muscles' maximum force scaled by `weakness` (the
+  JAX package's sarcopenia): gainprm[:, 2] where it is > 0, else the scale
+  gainprm[:, 3] that MuJoCo turns into a force through acc0; biasprm the
+  same, since the bias uses the same maximum force."""
+  is_muscle = torch.as_tensor(
+      model.actuator_gaintype == int(GainType.MUSCLE), device=model.device)
+
+  def weaken(prm):
+    force, scale = prm[:, 2], prm[:, 3]
+    prm = prm.clone()
+    prm[:, 2] = torch.where(is_muscle & (force > 0), force * weakness, force)
+    prm[:, 3] = torch.where(is_muscle & (force <= 0), scale * weakness,
+                            scale)
+    return prm
+
+  params = dict(model.params,
+                actuator_gainprm=weaken(model.actuator_gainprm),
+                actuator_biasprm=weaken(model.actuator_biasprm))
+  return dataclasses.replace(model, params=params)
+
+
+class ReafferentationWrapper:
+  """Tendon-transfer fault: actuator `src`'s command drives actuator `dst`
+  and `src` gets 0, before the env normalizes the actions (so `src`'s
+  muscle control is norm_actions(0))."""
+
+  def __init__(self, env, src: int, dst: int):
+    self._env = env
+    self._src, self._dst = src, dst
+
+  def __getattr__(self, name):
+    return getattr(self._env, name)
+
+  def reset(self, generator: torch.Generator, batch: int) -> State:
+    return self._env.reset(generator, batch)
+
+  def step(self, state: State, action: torch.Tensor) -> State:
+    action = action.clone()
+    action[:, self._dst] = action[:, self._src]
+    action[:, self._src] = 0.0
+    return self._env.step(state, action)
+
+
 class MyoEnv(abc.ABC):
   """Musculoskeletal env over the PyTorch physics engine.
 
@@ -45,6 +92,9 @@ class MyoEnv(abc.ABC):
     self._model = dataclasses.replace(model, opt=dataclasses.replace(
         model.opt, timestep=float(config["sim_dt"])))
     self._n_substeps = int(round(config["ctrl_dt"] / config["sim_dt"]))
+    if config.get("muscle_condition") == "sarcopenia":
+      self._model = _apply_sarcopenia(
+          self._model, config.get("sarcopenia_weakness", 0.5))
 
   @property
   def model(self) -> Model:

@@ -2,7 +2,12 @@
 
 The port's envs load their model and task config from files committed in
 `myosuite_tpu_torch/assets/`, compiled beforehand from MJCF, so `make`
-needs no MuJoCo. Ids and aliases follow the JAX package's registry.
+needs no MuJoCo. Ids, aliases and suites follow the JAX package's
+registry, with its muscle-condition variants: every base id registered
+with `register_with_variants` also has an `MtxFati*` id (wrapped in the
+3CC-r `FatigueWrapper`) and an `MtxSarc*` id (sarcopenia, half the muscle
+force). Overrides merge into an env's config recursively, as
+`ConfigDict.update` merges them in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,6 +28,9 @@ ELBOW_NPZ = os.path.join(ASSETS, "myoelbow.npz")
 FINGER_NPZ = os.path.join(ASSETS, "myofinger.npz")
 LEG_NPZ = os.path.join(ASSETS, "myoleg.npz")
 LEG_TERRAIN_NPZ = os.path.join(ASSETS, "myoleg_terrain.npz")
+TORSO_NPZ = os.path.join(ASSETS, "myotorso.npz")
+ARM_REACH_NPZ = os.path.join(ASSETS, "myoarm_reach.npz")
+ARM_NPZ = os.path.join(ASSETS, "myoarm.npz")
 # the in-hand manipulation models, by object (envs/manipulation.py ENVS)
 MANIP_NPZ = {obj: os.path.join(ASSETS, f"myohand_{obj}.npz")
              for obj in ("hold", "die", "pen", "baoding", "key")}
@@ -53,14 +61,41 @@ STAND_OVERRIDES = dict(
     max_episode_steps=300, reset_type="none",
     reward_weights=dict(reach=1.0, bonus=4.0, penalty=50.0, act_reg=1.0))
 
+# The ten ASL hand postures (the JAX package's registry): per digit prefix
+# the flexion fraction of each joint's range; other joints 0.05, abduction
+# joints 0.5, the wrist and deviation joints 0.
+_E, _F, _O = 0.05, 0.85, 0.55   # extended / flexed / opposed-curved
+ASL_PATTERNS = (
+    {"TH": _O, "IF": 0.6, "MF": 0.6, "RF": 0.6, "LF": 0.6},   # 0
+    {"TH": _F, "IF": _E, "MF": _F, "RF": _F, "LF": _F},       # 1
+    {"TH": _F, "IF": _E, "MF": _E, "RF": _F, "LF": _F},       # 2
+    {"TH": _E, "IF": _E, "MF": _E, "RF": _F, "LF": _F},       # 3
+    {"TH": _F, "IF": _E, "MF": _E, "RF": _E, "LF": _E},       # 4
+    {"TH": _E, "IF": _E, "MF": _E, "RF": _E, "LF": _E},       # 5
+    {"TH": _O, "IF": _E, "MF": _E, "RF": _E, "LF": _O},       # 6
+    {"TH": _O, "IF": _E, "MF": _E, "RF": _O, "LF": _E},       # 7
+    {"TH": _O, "IF": _E, "MF": _O, "RF": _E, "LF": _E},       # 8
+    {"TH": _O, "IF": _O, "MF": _E, "RF": _E, "LF": _E},       # 9
+)
+# reafferentation: the tendon transfer EIP -> EPL
+REAF_SRC, REAF_DST = "IF_EIP", "TH_EPL"
+
 _REGISTRY: Dict[str, Callable[..., Any]] = {}
 _ALIASES: Dict[str, str] = {}
+_SUITES: Dict[str, str] = {}
 
 
-def register(name: str, factory: Callable[..., Any], aliases=()) -> None:
+def register(name: str, factory: Callable[..., Any], aliases=(),
+             suite: str = "myobase") -> None:
   _REGISTRY[name] = factory
+  _SUITES[name] = suite
   for a in aliases:
     _ALIASES[a] = name
+
+
+def suite_of(name: str) -> str:
+  """The suite an env id (or alias) belongs to."""
+  return _SUITES.get(resolve(name), "myobase")
 
 
 def registered_envs():
@@ -73,12 +108,91 @@ def resolve(name: str) -> str:
 
 def make(name: str, device=None, overrides: Optional[Dict[str, Any]] = None):
   """Instantiate an env by id on `device` (default "cuda"; raises when CUDA
-  is not available unless another device is named); `overrides` replace
-  entries of the env's config."""
+  is not available unless another device is named); `overrides` update
+  the env's config, nested dicts key by key."""
   name = resolve(name)
   if name not in _REGISTRY:
     raise KeyError(f"unknown env {name!r}; registered: {registered_envs()}")
   return _REGISTRY[name](types.resolve_device(device), dict(overrides or {}))
+
+
+def _deep_merge(cfg: Dict[str, Any], overrides: Dict[str, Any]
+                ) -> Dict[str, Any]:
+  """`cfg` updated by `overrides`, a dict value merging into the dict it
+  replaces key by key (as `ConfigDict.update` does); `cfg` is not
+  changed."""
+  out = dict(cfg)
+  for k, v in overrides.items():
+    if isinstance(v, dict) and isinstance(out.get(k), dict):
+      out[k] = _deep_merge(out[k], v)
+    else:
+      out[k] = v
+  return out
+
+
+def _variant_alias(alias: str, tag: str) -> str:
+  for prefix in ("Mjx", "myo"):
+    if alias.startswith(prefix):
+      return prefix + tag + alias[len(prefix):]
+  return tag + alias
+
+
+def register_with_variants(name: str, factory: Callable[..., Any],
+                           aliases=(), suite: str = "myobase") -> None:
+  """Register a base env and its muscle-condition variants: MtxFati<...>
+  (the env in a FatigueWrapper) and MtxSarc<...> (muscle_condition
+  "sarcopenia"), with the base's aliases tagged Fati / Sarc."""
+  from myosuite_tpu_torch.envs.fatigue import FatigueWrapper
+
+  register(name, factory, aliases, suite=suite)
+  assert name.startswith("Mtx")
+  suffix = name[len("Mtx"):]
+
+  def fati_factory(device, overrides):
+    return FatigueWrapper(factory(device, overrides))
+
+  def sarc_factory(device, overrides):
+    return factory(device, {**overrides, "muscle_condition": "sarcopenia"})
+
+  register(f"MtxFati{suffix}", fati_factory,
+           aliases=tuple(_variant_alias(a, "Fati") for a in aliases),
+           suite=suite)
+  register(f"MtxSarc{suffix}", sarc_factory,
+           aliases=tuple(_variant_alias(a, "Sarc") for a in aliases),
+           suite=suite)
+
+
+def register_env_variant(env_id: str, variants: Dict[str, Any],
+                         variant_id: Optional[str] = None,
+                         silent: bool = False) -> str:
+  """Register a variant of a registered env: `variants` maps dot-path keys
+  ("reward_weights.pose", "max_episode_steps") to values, nested and merged
+  into the env's config. The id is made from the keys when not given.
+  Returns the new id."""
+  base = resolve(env_id)
+  if base not in _REGISTRY:
+    raise KeyError(f"unknown env {env_id!r}")
+  if variant_id is None:
+    tag = "-".join(f"{k.split('.')[-1]}={v}" for k, v in
+                   sorted(variants.items()))
+    stem, _, ver = base.rpartition("-")
+    variant_id = f"{stem}_{tag}-{ver}"
+  base_factory = _REGISTRY[base]
+  nested: Dict[str, Any] = {}
+  for k, v in variants.items():
+    cur = nested
+    parts = k.split(".")
+    for p in parts[:-1]:
+      cur = cur.setdefault(p, {})
+    cur[parts[-1]] = v
+
+  def factory(device, overrides):
+    return base_factory(device, _deep_merge(nested, overrides))
+
+  register(variant_id, factory)
+  if not silent:
+    print(f"Registered env variant: {variant_id}")
+  return variant_id
 
 
 def _episode_config(extra: Dict[str, np.ndarray], p: str) -> Dict[str, Any]:
@@ -101,14 +215,18 @@ def reach_config_from_npz(extra: Dict[str, np.ndarray],
 
 def pose_config_from_npz(extra: Dict[str, np.ndarray],
                          p: str = "cfg_pose_") -> Dict[str, Any]:
-  """PoseEnv config from the "<p>*" arrays of a model file."""
+  """PoseEnv config from the "<p>*" arrays of a model file; the weights
+  are named by "<p>reward_names" where the file has it, else they are
+  POSE_REWARDS in order."""
+  names = (map(str, extra[p + "reward_names"]) if p + "reward_names" in extra
+           else POSE_REWARDS)
   return dict(
       _episode_config(extra, p),
       target_jnt_lo=extra[p + "target_jnt_lo"],
       target_jnt_hi=extra[p + "target_jnt_hi"],
       pose_thd=float(extra[p + "pose_thd"]),
       reset_type=str(extra[p + "reset_type"]),
-      reward_weights=dict(zip(POSE_REWARDS,
+      reward_weights=dict(zip(names,
                               map(float, extra[p + "reward_weights"]))))
 
 
@@ -157,7 +275,7 @@ def _reach(path, prefix, device, overrides, fixed=False):
   model, extra = physics_io.load_model(path, device)
   cfg = reach_config_from_npz(extra, prefix)
   cfg["fixed_target"] = fixed
-  return ReachEnv(model, {**cfg, **overrides})
+  return ReachEnv(model, _deep_merge(cfg, overrides))
 
 
 def _pose(path, device, overrides, fixed=False):
@@ -165,16 +283,44 @@ def _pose(path, device, overrides, fixed=False):
   model, extra = physics_io.load_model(path, device)
   cfg = pose_config_from_npz(extra)
   cfg["fixed_target"] = fixed
-  return PoseEnv(model, {**cfg, **overrides})
+  return PoseEnv(model, _deep_merge(cfg, overrides))
 
 
-def _hand_pose(device, overrides, fixed=False):
+def asl_target(jnt_names, jnt_range: np.ndarray, pattern) -> np.ndarray:
+  """(njnt,) float64 posture of an ASL pattern over the hand's joints:
+  lo + frac (hi - lo) per joint, frac by the joint name's digit prefix."""
+  q = np.zeros(len(jnt_names))
+  for j, name in enumerate(jnt_names):
+    frac = pattern.get(name.split("_")[0], 0.05)
+    if name.endswith("_abd") or name.endswith("_dev") or "wrist" in name:
+      frac = 0.0 if "wrist" in name or name.endswith("_dev") else 0.5
+    lo, hi = (float(x) for x in jnt_range[j])
+    q[j] = lo + frac * (hi - lo)
+  return q
+
+
+def _hand_pose(device, overrides, fixed=False, asl=None):
+  """The hand pose task over the hand's own joint ranges; `asl` picks one
+  of ASL_PATTERNS as the fixed target."""
   from myosuite_tpu_torch.envs.pose import PoseEnv
-  model, _ = physics_io.load_model(HAND_REACH_NPZ, device)
+  model, extra = physics_io.load_model(HAND_REACH_NPZ, device)
   rng = model.jnt_range.cpu().numpy()
   cfg = dict(POSE_DEFAULTS, target_jnt_lo=rng[:, 0], target_jnt_hi=rng[:, 1],
              pose_thd=1.0, fixed_target=fixed)
-  return PoseEnv(model, {**cfg, **overrides})
+  if asl is not None:
+    cfg.update(fixed_target=True, target_jnt_value=asl_target(
+        [str(n) for n in extra["jnt_names"]], rng, ASL_PATTERNS[asl]))
+  return PoseEnv(model, _deep_merge(cfg, overrides))
+
+
+def _reaf_hand_pose(device, overrides):
+  """The hand pose task with the EIP command sent to EPL."""
+  from myosuite_tpu_torch.envs.base import ReafferentationWrapper
+  env = _hand_pose(device, overrides)
+  with np.load(HAND_REACH_NPZ) as z:
+    names = [str(n) for n in z["actuator_names"]]
+  return ReafferentationWrapper(env, src=names.index(REAF_SRC),
+                                dst=names.index(REAF_DST))
 
 
 def _leg(device, overrides, kind="walk"):
@@ -186,11 +332,12 @@ def _leg(device, overrides, kind="walk"):
       LEG_TERRAIN_NPZ if terrain else LEG_NPZ, device)
   cfg = walk_config_from_npz(extra)
   if kind == "stand":
-    return locomotion.StandEnv(model, {**cfg, **STAND_OVERRIDES, **overrides})
+    return locomotion.StandEnv(
+        model, _deep_merge(_deep_merge(cfg, STAND_OVERRIDES), overrides))
   if terrain:
     return locomotion.TerrainWalkEnv(
-        model, {**cfg, "terrain_type": kind, **overrides})
-  return locomotion.WalkEnv(model, {**cfg, **overrides})
+        model, _deep_merge({**cfg, "terrain_type": kind}, overrides))
+  return locomotion.WalkEnv(model, _deep_merge(cfg, overrides))
 
 
 def _manip(obj, device, overrides, fixed=False):
@@ -198,19 +345,19 @@ def _manip(obj, device, overrides, fixed=False):
   from myosuite_tpu_torch.envs import manipulation
   model, extra = physics_io.load_model(MANIP_NPZ[obj], device)
   cfg = dict(manip_config_from_npz(extra), fixed_target=fixed)
-  return manipulation.ENVS[obj](model, {**cfg, **overrides})
+  return manipulation.ENVS[obj](model, _deep_merge(cfg, overrides))
 
 
-def _register_pair(stem, factory, aliases):
-  """<stem>{Random,Fixed}-v0 and their aliases (each an alias stem)."""
-  for kind, fixed in (("Random", False), ("Fixed", True)):
-    register(f"{stem}{kind}-v0", functools.partial(factory, fixed=fixed),
-             aliases=tuple(f"{a}{kind}-v0" for a in aliases))
+def _register_pair(stem, factory, aliases, suite="myobase"):
+  """<stem>{Random,Fixed}-v0 with their variants and aliases (each an alias
+  stem)."""
+  for kind in ("Random", "Fixed"):
+    register_with_variants(
+        f"{stem}{kind}-v0",
+        functools.partial(factory, fixed=kind == "Fixed"),
+        aliases=tuple(f"{a}{kind}-v0" for a in aliases), suite=suite)
 
 
-_register_pair("MtxHandReach",
-               functools.partial(_reach, HAND_REACH_NPZ, "cfg_"),
-               ("MjxHandReach", "myoHandReach"))
 _register_pair("MtxElbowPose", functools.partial(_pose, ELBOW_NPZ),
                ("MjxElbowPose", "myoElbowPose1D6M"))
 _register_pair("MtxFingerPose", functools.partial(_pose, FINGER_NPZ),
@@ -219,21 +366,38 @@ _register_pair("MtxFingerReach",
                functools.partial(_reach, FINGER_NPZ, "cfg_reach_"),
                ("myoFingerReach",))
 _register_pair("MtxHandPose", _hand_pose, ("MjxHandPose", "myoHandPose"))
-register("MtxLegWalk-v0", _leg, aliases=("myoLegWalk-v0",))
-register("MtxLegStand-v0", functools.partial(_leg, kind="stand"),
-         aliases=("myoLegReachFixed-v0", "myoLegStand-v0"))
-for _kind, _alias in (("Rough", "Rough"), ("Hilly", "Hilly"),
-                      ("Stairs", "Stair")):
-  register(f"MtxLegWalk{_kind}-v0", functools.partial(_leg,
-                                                      kind=_kind.lower()),
-           aliases=(f"myoLeg{_alias}TerrainWalk-v0",))
+_register_pair("MtxHandReach",
+               functools.partial(_reach, HAND_REACH_NPZ, "cfg_"),
+               ("MjxHandReach", "myoHandReach"))
 _register_pair("MtxHandObjHold", functools.partial(_manip, "hold"),
                ("myoHandObjHold",))
-register("MtxHandDieReorient-v0", functools.partial(_manip, "die"),
-         aliases=("myoChallengeDieReorientP1-v0", "myoHandReorient-v0"))
+register_with_variants(
+    "MtxHandDieReorient-v0", functools.partial(_manip, "die"),
+    aliases=("myoChallengeDieReorientP1-v0", "myoHandReorient-v0"))
 _register_pair("MtxHandPenTwirl", functools.partial(_manip, "pen"),
                ("myoHandPenTwirl",))
-register("MtxHandBaoding-v0", functools.partial(_manip, "baoding"),
-         aliases=("myoChallengeBaodingP1-v1", "myoHandBaodingRandom-v0"))
+register_with_variants(
+    "MtxHandBaoding-v0", functools.partial(_manip, "baoding"),
+    aliases=("myoChallengeBaodingP1-v1", "myoHandBaodingRandom-v0"))
 _register_pair("MtxHandKeyTurn", functools.partial(_manip, "key"),
                ("myoHandKeyTurn",))
+register_with_variants("MtxLegWalk-v0", _leg, aliases=("myoLegWalk-v0",))
+register_with_variants("MtxLegStand-v0", functools.partial(_leg, kind="stand"),
+                       aliases=("myoLegReachFixed-v0", "myoLegStand-v0"))
+for _kind, _alias in (("Rough", "Rough"), ("Hilly", "Hilly"),
+                      ("Stairs", "Stair")):
+  register_with_variants(
+      f"MtxLegWalk{_kind}-v0", functools.partial(_leg, kind=_kind.lower()),
+      aliases=(f"myoLeg{_alias}TerrainWalk-v0",))
+for _k in range(len(ASL_PATTERNS)):
+  register(f"MtxHandPose{_k}Fixed-v0", functools.partial(_hand_pose, asl=_k),
+           aliases=(f"myoHandPose{_k}Fixed-v0",))
+_register_pair("MtxTorsoPose", functools.partial(_pose, TORSO_NPZ),
+               ("myoTorsoPose",))
+_register_pair("MtxArmReach", functools.partial(_reach, ARM_REACH_NPZ, "cfg_"),
+               ("myoArmReach",), suite="myoedits")
+register_with_variants("MtxArmPoseRandom-v0",
+                       functools.partial(_pose, ARM_NPZ),
+                       aliases=("myoArmPoseRandom-v0",))
+register("MtxReafHandPoseRandom-v0", _reaf_hand_pose,
+         aliases=("myoReafHandPoseRandom-v0",))

@@ -28,6 +28,17 @@ def _pick(boundary: torch.Tensor, new: torch.Tensor,
   return torch.where(boundary.view((-1,) + (1,) * (old.dim() - 1)), new, old)
 
 
+def _pick_info(boundary: torch.Tensor, new, old):
+  """`_pick` over an info entry: a tensor, or a dict of them at any depth
+  (e.g. the fatigue state); anything else, or an entry the reset does not
+  make, is kept."""
+  if isinstance(old, torch.Tensor) and isinstance(new, torch.Tensor):
+    return _pick(boundary, new, old)
+  if isinstance(old, dict) and isinstance(new, dict):
+    return {k: _pick_info(boundary, new.get(k), v) for k, v in old.items()}
+  return old
+
+
 def _pick_fields(boundary: torch.Tensor, new, old, static=()):
   """`_pick` over every field of a dataclass, descending into dataclass
   fields; fields named in `static` (tables without an env axis, the same
@@ -92,13 +103,9 @@ class AutoResetWrapper:
     new_obs = {k: pick(fresh.obs[k], v) for k, v in obs.items()}
 
     # env-specific info (targets etc.) comes from the reset branch too
-    new_info: Dict[str, Any] = {}
-    for k, v in info.items():
-      if k in _OWN:
-        continue
-      fv = fresh.info.get(k)
-      new_info[k] = pick(fv, v) if isinstance(v, torch.Tensor) and \
-          fv is not None else v
+    new_info: Dict[str, Any] = {
+        k: _pick_info(boundary, fresh.info.get(k), v)
+        for k, v in info.items() if k not in _OWN}
     ep_ret = info["episode_return"] + reward
     new_info.update(
         generator=info["generator"],

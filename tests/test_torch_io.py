@@ -91,7 +91,7 @@ sys.modules["mujoco"] = None
 import torch
 import myosuite_tpu_torch
 from myosuite_tpu_torch.physics import forward, newton_kernel, solver
-from myosuite_tpu_torch.envs import pose, wrappers
+from myosuite_tpu_torch.envs import fatigue, pose, wrappers
 from myosuite_tpu_torch.train import (callbacks, checkpoint, convert,
                                       networks, ppo, running_stats,
                                       train_ppo)
@@ -99,6 +99,12 @@ env = myosuite_tpu_torch.make("MtxHandReachRandom-v0", device="cpu")
 state = env.reset(torch.Generator().manual_seed(0), batch=2)
 state = env.step(state, torch.full((2, env.action_size), 0.5))
 assert torch.isfinite(state.obs["state"]).all()
+for name in ("MtxFatiArmReachFixed-v0", "MtxSarcTorsoPoseFixed-v0",
+             "MtxReafHandPoseRandom-v0"):
+  env = myosuite_tpu_torch.make(name, device="cpu")
+  state = env.step(env.reset(torch.Generator().manual_seed(0), batch=1),
+                   torch.full((1, env.action_size), 0.5))
+  assert torch.isfinite(state.obs["state"]).all(), name
 cfg = ppo.default_config()
 cfg.num_envs, cfg.unroll_length, cfg.num_minibatches = 2, 1, 1
 cfg.num_updates_per_batch = 1
@@ -118,8 +124,9 @@ print("ok")
 
 def test_port_imports_no_jax_and_no_myosuite_tpu():
   """With jax and mujoco unimportable, the port imports every module,
-  steps the committed hand model and takes a PPO training step on the
-  finger, and loads no module of the JAX package."""
+  steps the committed hand model, the Fati arm reach, the Sarc torso and
+  the Reaf hand, takes a PPO training step on the finger, and loads no
+  module of the JAX package."""
   proc = subprocess.run([sys.executable, "-c", _ISOLATION], cwd=_REPO,
                         capture_output=True, text=True, timeout=300)
   assert proc.returncode == 0, proc.stderr

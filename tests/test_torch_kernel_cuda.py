@@ -125,6 +125,32 @@ def test_kernel_matches_plain_hand(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["MtxTorsoPoseRandom-v0",
+                                  "MtxArmReachRandom-v0",
+                                  "MtxArmPoseRandom-v0",
+                                  "MtxSarcHandReachRandom-v0",
+                                  "MtxFatiHandReachRandom-v0"])
+def test_kernel_bit_equal_at_myobase_inputs(cuda, name):
+  """The torso (nv 18, nefc 18), the arm reach (7, 7), the arm pose
+  (27, 27), and the hand under sarcopenia and fatigue, at each env's own
+  solver inputs after 3 control steps: outputs equal to the plain
+  version's."""
+  import myosuite_tpu_torch
+  env = myosuite_tpu_torch.make(name, device=cuda)
+  gen = torch.Generator(cuda).manual_seed(0)
+  state = env.reset(gen, 256)
+  for _ in range(3):
+    state = env.step(state, torch.rand(256, env.action_size, generator=gen,
+                                       device=cuda))
+  args, kw = forward.solve_inputs(env.model, state.data)
+  out = newton_kernel.newton_solve(*args, **kw)
+  ref = newton_kernel.newton_solve_reference(*args, **kw)
+  for o, r, n in zip(out, ref, NAMES):
+    assert torch.isfinite(o).all(), n
+    assert torch.equal(o, r), (n, float((o - r).abs().max()))
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda):
   args = [a.to(cuda) for a in _synthetic(0, 4)]
   bad = list(args)

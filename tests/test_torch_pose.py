@@ -86,8 +86,9 @@ def test_hand_pose_config_matches_jax():
 
 
 def test_registry_ids_and_aliases():
-  """The ids of the JAX registry the port has so far, with their
-  aliases."""
+  """Every id of the port is one of the JAX registry's; these have their
+  aliases (tests/test_torch_conditions.py::test_registry_matches_jax holds
+  the whole registry)."""
   want = {
       "MtxElbowPoseRandom-v0": ("MjxElbowPoseRandom-v0",
                                 "myoElbowPose1D6MRandom-v0"),
@@ -110,7 +111,9 @@ def test_registry_ids_and_aliases():
       "MtxLegWalkHilly-v0": ("myoLegHillyTerrainWalk-v0",),
       "MtxLegWalkStairs-v0": ("myoLegStairTerrainWalk-v0",),
   }
-  assert registry.registered_envs() == sorted(want)
+  assert set(want) <= set(registry.registered_envs())
+  assert set(registry.registered_envs()) <= set(
+      jax_registry.registered_envs())
   for name, aliases in want.items():
     assert name in jax_registry.registered_envs()
     for a in aliases:

@@ -90,29 +90,52 @@ def _reach_cfg(env, p):
           [cfg.reward_weights[k] for k in REACH_REWARDS], dtype=np.float64)})
 
 
-def _pose_cfg(env, p="cfg_pose_"):
-  """A JAX PoseEnv's config as the "<p>*" arrays of a model file."""
+def _pose_cfg(env, p="cfg_pose_", named=False):
+  """A JAX PoseEnv's config as the "<p>*" arrays of a model file; the
+  reward weights in POSE_REWARDS order, or `named` with every weight of
+  the config and its name (sorted)."""
   from myosuite_tpu_torch.envs.registry import POSE_REWARDS
   cfg = env.config
-  return dict(
+  names = sorted(cfg.reward_weights.keys()) if named else POSE_REWARDS
+  out = dict(
       {p + "target_jnt_lo": np.asarray(cfg.target_jnt_lo, dtype=np.float32),
        p + "target_jnt_hi": np.asarray(cfg.target_jnt_hi, dtype=np.float32),
        p + "pose_thd": np.asarray(cfg.pose_thd, dtype=np.float64),
        p + "reset_type": np.asarray(cfg.reset_type)},
       **_episode_cfg(cfg, p),
       **{p + "reward_weights": np.asarray(
-          [cfg.reward_weights[k] for k in POSE_REWARDS], dtype=np.float64)})
+          [cfg.reward_weights[k] for k in names], dtype=np.float64)})
+  if named:
+    out[p + "reward_names"] = np.asarray(names)
+  return out
 
 
-def hand_reach_export():
-  """Field dict and reach config of the JAX package's
-  MtxHandReachRandom-v0, in the layout of
-  myosuite_tpu_torch/assets/myohand_reach.npz."""
+def _names(mj):
+  """The joint and actuator names of a MuJoCo model, as string arrays."""
+  name = lambda obj, i: mujoco.mj_id2name(mj, obj, i)
+  return {"jnt_names": np.asarray([name(mujoco.mjtObj.mjOBJ_JOINT, j)
+                                   for j in range(mj.njnt)]),
+          "actuator_names": np.asarray([name(mujoco.mjtObj.mjOBJ_ACTUATOR, i)
+                                        for i in range(mj.nu)])}
+
+
+def _named_export(env_id, task_cfg):
+  """Field dict, task config (`task_cfg` of the env) and joint and
+  actuator names of the JAX package's env `env_id`."""
   import myosuite_tpu
   from myosuite_tpu_torch.physics import io as torch_io
 
-  env = myosuite_tpu.make("MtxHandReachRandom-v0")
-  return torch_io.model_fields(env.mj_model), _reach_cfg(env, "cfg_")
+  env = myosuite_tpu.make(env_id)
+  return (torch_io.model_fields(env.mj_model),
+          dict(task_cfg(env), **_names(env.mj_model)))
+
+
+def hand_reach_export():
+  """Field dict, reach config and joint and actuator names of the JAX
+  package's MtxHandReachRandom-v0, in the layout of
+  myosuite_tpu_torch/assets/myohand_reach.npz."""
+  return _named_export("MtxHandReachRandom-v0",
+                       lambda env: _reach_cfg(env, "cfg_"))
 
 
 def elbow_export():
@@ -243,4 +266,15 @@ EXPORTS = {"myohand_reach.npz": hand_reach_export,
            "myoelbow.npz": elbow_export, "myofinger.npz": finger_export,
            "myoleg.npz": leg_export, "myoleg_terrain.npz": leg_terrain_export,
            **{f"myohand_{obj}.npz": functools.partial(manip_export, obj)
-              for obj in MANIP_IDS}}
+              for obj in MANIP_IDS},
+           # the pose models store their reward names (the torso's
+           # weights hold a "done" weight that PoseEnv never returns)
+           "myotorso.npz": functools.partial(
+               _named_export, "MtxTorsoPoseRandom-v0",
+               functools.partial(_pose_cfg, named=True)),
+           "myoarm_reach.npz": functools.partial(
+               _named_export, "MtxArmReachRandom-v0",
+               lambda env: _reach_cfg(env, "cfg_")),
+           "myoarm.npz": functools.partial(
+               _named_export, "MtxArmPoseRandom-v0",
+               functools.partial(_pose_cfg, named=True))}
