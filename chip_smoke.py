@@ -6,7 +6,7 @@ its plain PyTorch version on the card, drives the main path
 that every substep's solve went through the kernel, prints the kernel's
 occupancy and its split by phase (from a second, clock-stamped build),
 replays the golden trajectory of the JAX package, trains the hand with PPO
-at its default config (4096 envs; 2 timed training steps, a checkpoint
+at its default config (4096 envs; 1 timed training step, a checkpoint
 round trip) and shows PPO learning the elbow pose task. Phase 7 drives
 contacts: MtxLegWalk-v0 at batch 4096 (16 timed control steps, its
 profile, the kernel against its plain version at the leg's own solver
@@ -18,14 +18,24 @@ occupancy, golden replays) and one timed PPO training step on
 MtxHandObjHoldRandom-v0. Phase 9 drives the muscle conditions and the
 rest of myobase at batch 4096: the torso (nv 18), the arm reach (nv 7) and
 the arm pose (nv 27), an ASL posture, the reafferented hand, and the hand
-under sarcopenia and fatigue (16 timed control steps each, the kernel
+under sarcopenia and fatigue (8 timed control steps each, the kernel
 against its plain version at each env's own inputs), the sarcopenia
 forces, the plain and the Fati hand in turns, the fatigue state's
 conservation, growth and auto-reset, one timed PPO training step on
-MtxFatiHandReachRandom-v0 and the myobase golden replays. Prints one JSON line of kernel numbers (with a `shapes`
-list per (nv, nefc)) and, last, {"ok": true, "device": {...}}. Exits
-non-zero, with no result line, when any phase fails or when there is no
-CUDA card.
+MtxFatiHandReachRandom-v0 and the myobase golden replays. Phase 10
+drives per-env models, tracking and MyoDM at batch 4096: the elbow with a
+payload and an exo torque, SAR's Reorient100 (a capsule per env), the
+hand's and finger's cyclic tracks and one MyoDM id per object class
+(sphere, box hull, cylinder hull, capsule) plus a Random object target (8
+timed control steps each, the kernel against its plain version at each
+env's own per-env inputs), Reorient100 against PenTwirl in pairs of turns,
+the tracking golden replays, the per-env model check (two geometries in
+one batch against batch-1 runs, the first substep's solve taken apart in
+float32 and float64) and one timed PPO training step on
+MtxHandReorient100-v0, then phase 10's seconds by part. Prints one JSON
+line of kernel numbers (with a `shapes` list per env and (nv, nefc)) and,
+last, {"ok": true, "device": {...}}. Exits non-zero, with no result line,
+when any phase fails or when there is no CUDA card.
 
   python3 chip_smoke.py --parent DIR
 
@@ -36,6 +46,7 @@ swapped in, and prints DIR's phase split.
 """
 
 import argparse
+import contextlib
 import importlib.util
 import json
 import os
@@ -48,7 +59,7 @@ import torch
 
 BATCH = 4096
 STEPS = 16               # bench.py's protocol: 16 control steps
-PPO_STEPS = 2            # timed PPO training steps (phase 5)
+PPO_STEPS = 1            # timed PPO training steps (phase 5)
 LEG_PPO_STEPS = 1        # timed PPO training steps on the leg (phase 7)
 ROUGH_STEPS = 2          # control steps on terrain (phase 7)
 MANIP_STEPS = 8          # control steps of each manipulation env (phase 8)
@@ -61,7 +72,7 @@ MANIP = (("hold", "MtxHandObjHoldRandom-v0", "MtxHandObjHoldFixed-v0", None),
          ("baoding", "MtxHandBaoding-v0", "MtxHandBaoding-v0",
           {"fixed_target": True}),
          ("key", "MtxHandKeyTurnRandom-v0", "MtxHandKeyTurnFixed-v0", None))
-MYOBASE_STEPS = 16       # control steps of each env of phase 9
+MYOBASE_STEPS = 8        # control steps of each env of phase 9
 TURN_PAIRS = 6           # phase 9: pairs of plain / Fati hand turns
 TURN_STEPS = 4           # control steps a turn
 # phase 9: the envs at batch 4096 (the first three are the new models)
@@ -83,6 +94,24 @@ MYOBASE_GOLDEN = {
     "sarc": ("MtxSarcHandReachFixed-v0", None, False),
     "reaf": ("MtxReafHandPoseRandom-v0", {"reset_type": "none"}, True),
     "fati": ("MtxFatiHandReachFixed-v0", None, False)}
+TRACK_STEPS = 8          # control steps of each env of phase 10
+SAR_PAIRS = 4            # phase 10: pairs of PenTwirl / Reorient100 turns
+SAR_TURN_STEPS = 3       # control steps a turn
+# phase 10: per-env models, tracking and MyoDM at batch 4096 (tag, id)
+TRACKING = (("exo", "MtxElbowPoseExoRandom-v0"),
+            ("reorient100", "MtxHandReorient100-v0"),
+            ("hand_track", "MtxHandTrackCyclic-v0"),
+            ("finger_track", "MtxFingerTrackCyclic-v0"),
+            ("apple_lift", "MtxHandAppleLift-v0"),          # sphere
+            ("airplane_lift", "MtxHandAirplaneLift-v0"),    # box hull
+            ("mug_lift", "MtxHandMugLift-v0"),              # cylinder hull
+            ("flute_pass", "MtxHandFlutePass-v0"),          # capsule
+            ("apple_random", "MtxHandAppleRandom-v0"))
+# the tracking golden file's envs: tag -> (id, overrides), as
+# tests/test_torch_tracking.py::GOLDEN_ENVS writes them; the info entries
+# supplied before each step are stored as "<tag>_info_<key>"
+TRACKING_GOLDEN = {tag: (name, {"reset_type": "none"} if tag == "exo"
+                         else None) for tag, name in TRACKING}
 # Kernel vs plain version, on every output: |ours - ref| <= TOL |ref| +
 # TOL max(1, max |ref|). The plain version sums in the kernel's order and the
 # kernel is built without multiply-add contraction, so most outputs agree
@@ -128,6 +157,29 @@ def cuda_ms(fn, n):
   return start.elapsed_time(end) / n
 
 
+class Stopwatch:
+  """Seconds of host clock spent in each labelled part of a phase, the card
+  synchronized at each part's end; `report` prints them."""
+
+  def __init__(self):
+    self.seconds = {}
+
+  @contextlib.contextmanager
+  def part(self, label):
+    t0 = time.perf_counter()
+    yield
+    if torch.cuda.is_available():
+      torch.cuda.synchronize()
+    self.seconds[label] = (self.seconds.get(label, 0.0)
+                           + time.perf_counter() - t0)
+
+  def report(self, phase):
+    total = sum(self.seconds.values())
+    print(f"  {phase} seconds by part ({total:.1f} s in all): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(self.seconds.items(),
+                                          key=lambda kv: -kv[1])))
+
+
 def phase_split(label, cycles, phases):
   """Print mean clock cycles per env (one warp) of each phase."""
   mean = cycles.double().mean(0)
@@ -161,11 +213,15 @@ def control_steps(env, state, gen, n):
 
 def profile_call(fn, sync=torch.cuda.synchronize):
   """fn() under torch.profiler: (device-busy ms, wall ms, kernel launches,
-  the five costliest kernels as (name, ms, calls))."""
+  the five costliest kernels as (name, ms, calls)). Only the card's
+  activity is traced (the host's where there is no card, for a rehearsal
+  on the CPU): the host's op events of a control step (tens of thousands)
+  took ~15 s each to process, and no number here reads them."""
   from torch.profiler import ProfilerActivity, profile
   sync()
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
+  with profile(activities=[ProfilerActivity.CUDA
+                           if torch.cuda.is_available()
+                           else ProfilerActivity.CPU]) as prof:
     t0 = time.perf_counter()
     fn()
     sync()
@@ -175,6 +231,8 @@ def profile_call(fn, sync=torch.cuda.synchronize):
   busy = sum(e.self_device_time_total for e in kernels) / 1e3
   launches = sum(e.count for e in kernels)
   top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+  if torch.cuda.is_available() and not launches:
+    raise AssertionError("the profiler saw no kernel on the card")
   return busy, wall, launches, [(e.key[:60], e.self_device_time_total / 1e3,
                                  e.count) for e in top]
 
@@ -236,16 +294,18 @@ def compare_parent(path, env, state, gen, args, kw, ours, few):
   nk._lib = libs["this"]
 
 
-def kernel_numbers(label, args, kw):
+def kernel_numbers(label, args, kw, plain_ms=None):
   """The Newton kernel against its plain version on one set of solver
-  inputs (`compare` at TOL), its ms per launch, the plain version's ms and
-  the bound from the cost model at the rows weighted at the solution."""
+  inputs (`compare` at TOL), its ms per launch, the plain version's ms (timed
+  here unless `plain_ms` gives it, as measured at the same shape) and the
+  bound from the cost model at the rows weighted at the solution."""
   from myosuite_tpu_torch.physics import newton_kernel as nk
   ours = nk.newton_solve(*args, **kw)
   ref = nk.newton_solve_reference(*args, **kw)
   max_abs = compare(label, ours, ref, TOL)
   ms = cuda_ms(lambda: nk.newton_solve(*args, **kw), 50)
-  plain_ms = cuda_ms(lambda: nk.newton_solve_reference(*args, **kw), 3)
+  if plain_ms is None:
+    plain_ms = cuda_ms(lambda: nk.newton_solve_reference(*args, **kw), 3)
   batch, nefc, nv = args[1].shape
   n_weighted = nk.weighted_rows(ours[2], kw["n_friction"])
   flops = batch * nk.flops_per_env(nv, nefc, kw["iterations"],
@@ -441,15 +501,18 @@ GOLDEN_FIELDS = ("obs", "reward", "done", "qpos", "qvel", "act")
 
 
 def check_golden(label, env, state, golden, prefix="", actions="actions",
-                 fatigue=False):
+                 fatigue=False, supplied=None):
   """Step `env` from `state` through the golden actions (golden[actions])
   and hold each field (with `fatigue`, MA, MR and MF of info["fatigue"]
   too) within the tolerance stored beside it (golden[prefix + field] and
-  golden["atol_" + prefix + field]); print the largest gaps."""
+  golden["atol_" + prefix + field]); print the largest gaps. `supplied`
+  info entries are set before every step."""
   fields = GOLDEN_FIELDS + (("MA", "MR", "MF") if fatigue else ())
   rec = {k: [] for k in fields}
   dev = state.obs["state"].device
   for a in golden[actions]:
+    if supplied:
+      state = state.replace(info={**state.info, **supplied})
     state = env.step(state, torch.from_numpy(a).to(dev))
     vals = (state.obs["state"], state.reward, state.done, state.data.qpos,
             state.data.qvel, state.data.act)
@@ -889,6 +952,277 @@ def myobase_phase(dev, build, phase_lib):
   return dict(shapes=shapes, ppo=trained["steps"])
 
 
+def _env_row(d, i):
+  """Env i of a batched Data, as a batch of 1."""
+  import dataclasses
+  out = {}
+  for f in dataclasses.fields(d):
+    v = getattr(d, f.name)
+    if dataclasses.is_dataclass(v):
+      out[f.name] = type(v)(**{
+          g.name: getattr(v, g.name) if g.name in v.STATIC
+          else getattr(v, g.name)[i:i + 1] for g in dataclasses.fields(v)})
+    else:
+      out[f.name] = v[i:i + 1]
+  return type(d)(**out)
+
+
+# per_env_model_check: how far each field of a batch-1 run may lie from its
+# row of the batch after one substep, as a share of max(1, the field's
+# largest magnitude). qM and the contact distances come before the solve;
+# the rest after it, where the card measured qpos 9.4e-6 of 1.245, qvel
+# 7.43e-3 of 1.372, qacc 5.80 of 760.8 and efc_force 1.84e-3 of 6.365
+# (ROADMAP C5)
+BATCH1_REL = {"qM": 1e-5, "dist": 1e-5, "qpos": 1.5e-5, "qvel": 1e-2,
+              "qacc": 1.5e-2, "efc_force": 5e-4}
+SOLVER_ARGS = ("qM", "J", "aref", "R", "floss", "active", "warm",
+               "qfrc_smooth", "damph")
+
+
+def moved_iterations(args, kw):
+  """Which Newton iterations moved qacc, per env of one set of solver
+  inputs: the plain version run with 0, 1, ..., kw["iterations"]
+  iterations, each run a prefix of the next (no iteration count depends on
+  the data and no solve exits early); a list per env of 0/1."""
+  from myosuite_tpu_torch.physics import newton_kernel as nk
+  runs = [nk.newton_solve_reference(*args, **dict(kw, iterations=k))[0]
+          for k in range(kw["iterations"] + 1)]
+  moved = torch.stack([(b != a).any(-1) for a, b in zip(runs, runs[1:])], 1)
+  return moved.int().tolist()
+
+
+def batch1_solver_gap(env, idx, d, i):
+  """Env i's first-substep solver inputs as its row of the batch and as a
+  batch-1 run, each solved in float32 (the kernel) and float64 (the plain
+  version); prints the inputs' gap, the two solutions' gaps, float32's own
+  distance from float64 and which iterations moved qacc in each run.
+  Raises unless the float64 solves agree to 1e-6 of qacc's scale (the
+  inputs differ by rounding only)."""
+  from myosuite_tpu_torch.physics import forward
+  from myosuite_tpu_torch.physics import newton_kernel as nk
+  row, kw = forward.solve_inputs(env._model_for_step({"geom_idx": idx}), d)
+  row = [a[i:i + 1] for a in row]
+  one, _ = forward.solve_inputs(
+      env._model_for_step({"geom_idx": idx[i:i + 1]}), _env_row(d, i))
+  gaps = {n: float((a.double() - b.double()).abs().max())
+          for n, a, b in zip(SOLVER_ARGS, row, one)}
+  f32 = [nk.newton_solve(*x, **kw)[0] for x in (row, one)]
+  f64 = [nk.newton_solve_reference(*[a.double() for a in x], **kw)[0]
+         for x in (row, one)]
+  gap32 = float((f32[0] - f32[1]).abs().max())
+  gap64 = float((f64[0] - f64[1]).abs().max())
+  own = float((f32[0].double() - f64[0]).abs().max())
+  paths = [moved_iterations(x, kw)[0] for x in (
+      row, one, [a.double() for a in row], [a.double() for a in one])]
+  print(f"    env {i} solver inputs, row against batch-1 run: "
+        + ", ".join(f"{n} {g:.2e}" for n, g in gaps.items()))
+  scale = max(1.0, float(f64[0].abs().max()))
+  print(f"      qacc of the two solves (scale {scale:.1f}): {gap32:.3e} "
+        f"apart in float32, "
+        f"{gap64:.3e} in float64; float32 off float64 on the row's inputs "
+        f"by {own:.3e}; {kw['iterations']} Newton iterations of "
+        f"{kw['ls_iterations']} line-search steps in every run; iterations "
+        f"that moved qacc, float32 row {paths[0]}, batch-1 {paths[1]}, "
+        f"float64 row {paths[2]}, batch-1 {paths[3]}")
+  if not gap64 <= 1e-6 * scale:
+    raise AssertionError(f"per-env model: env {i}'s row and batch-1 run "
+                         f"solve {gap64} apart in float64")
+
+
+def per_env_model_check(dev):
+  """Reorient100 with two geometry rows in one batch, one substep from
+  the reset: the two envs' qM and contact distances differ; each env's
+  whole substep equals, bit for bit, its row of the same batch stepped
+  with its own geometry in both envs; and each env lies within BATCH1_REL
+  of a batch-1 run of its geometry. Where the batch-1 run is not
+  bit-equal, the first substep's solve is taken apart
+  (`batch1_solver_gap`: on the card the float32 accept test of the
+  batch-1 run rejects a step that the row's takes, ROADMAP C5). Raises on
+  a miss."""
+  import myosuite_tpu_torch
+  from myosuite_tpu_torch.physics import forward
+  env = myosuite_tpu_torch.make("MtxHandReorient100-v0")
+  gen = torch.Generator(dev).manual_seed(5)
+  state = env.reset(gen, 2)
+  idx = torch.tensor([3, 71], device=dev)
+  rows = env._geoms[idx].cpu().numpy()
+  d = state.data.replace(ctrl=torch.rand(2, env.action_size, generator=gen,
+                                         device=dev))
+  step = lambda geom, data: forward.step_n(
+      env._model_for_step({"geom_idx": geom}), data, 1)
+  fields = lambda x: {"qM": x.qM, "dist": x.contact.dist, "qpos": x.qpos,
+                      "qvel": x.qvel, "qacc": x.qacc,
+                      "efc_force": x.efc_force}
+  both = fields(step(idx, d))
+  differ = {k: not torch.equal(both[k][0], both[k][1])
+            for k in ("qM", "dist")}
+  print(f"  per-env model: Reorient100 geometry rows 3 and 71 (radius, "
+        f"half-length, mass scale {rows[0].round(4).tolist()} and "
+        f"{rows[1].round(4).tolist()}); after one substep the envs differ "
+        f"in qM {differ['qM']}, contact dist {differ['dist']}")
+  if not all(differ.values()):
+    raise AssertionError("per-env model: the two geometries gave the same "
+                         "system")
+  for i in range(2):
+    same = fields(step(idx[i].expand(2), d))
+    if not all(torch.equal(v[i], same[k][i]) for k, v in both.items()):
+      raise AssertionError(f"per-env model: env {i} is not its row of the "
+                           f"batch with its own geometry")
+    one = fields(step(idx[i:i + 1], _env_row(d, i)))
+    gaps = []
+    for k, v in one.items():
+      gap = float((both[k][i:i + 1] - v).abs().max())
+      scale = max(1.0, float(v.abs().max()))
+      gaps.append(f"{k} {gap:.3e} of {scale:.3e}")
+      if not gap <= BATCH1_REL[k] * scale:
+        raise AssertionError(f"per-env model: env {i} {k} is {gap} off its "
+                             f"batch-1 run (limit {BATCH1_REL[k]} of "
+                             f"{scale})")
+    print(f"    env {i}: bit-equal to its row of a batch with its geometry "
+          f"in both envs; off its batch-1 run by " + ", ".join(gaps))
+    if any(not torch.equal(both[k][i:i + 1], v) for k, v in one.items()):
+      batch1_solver_gap(env, idx, d, i)
+
+
+def tracking_phase(dev, build, phase_lib):
+  """Phase 10: per-env models (the exo payload, SAR's capsule), the cyclic
+  tracks and one MyoDM id per object class at batch 4096 through the
+  Newton kernel (each env's control step, profile, and the kernel against
+  its plain version at the env's own per-env inputs), Reorient100 against
+  PenTwirl in pairs of turns, the tracking golden replays, the per-env
+  model check and one PPO training step of MtxHandReorient100-v0. Raises
+  on any failed check; returns the kernel's numbers per env."""
+  import myosuite_tpu_torch
+  from myosuite_tpu_torch.envs.registry import ASSETS
+  from myosuite_tpu_torch.physics import forward
+  from myosuite_tpu_torch.physics import newton_kernel as nk
+  from myosuite_tpu_torch.train import ppo as ppo_mod
+
+  watch = Stopwatch()
+  shapes = []
+  plain_ms = {}        # (nv, nefc) -> the plain version's ms, timed once
+  for tag, name in TRACKING:
+    with watch.part("make"):
+      env = myosuite_tpu_torch.make(name)
+    m = env.model
+    gen = torch.Generator(dev).manual_seed(0)
+    t0 = time.perf_counter()
+    with watch.part("reset"):
+      state = env.reset(gen, BATCH)
+    nefc = m.plan["constraint"].nefc
+    print(f"phase 10 tracking: {name} ({type(env).__name__}) reset at "
+          f"batch {BATCH} in {time.perf_counter() - t0:.2f} s; nv {m.nv}, "
+          f"nu {m.nu}, nefc {nefc}, contact slots {m.ncon_max}")
+    with watch.part("warm-up step"):
+      _, state = control_steps(env, state, gen, 1)
+    nk.launches = 0
+    with watch.part("timed steps"):
+      step_ms, state = control_steps(env, state, gen, TRACK_STEPS)
+    launches = nk.launches
+    obs, d = state.obs["state"], state.data
+    finite = bool(torch.isfinite(obs).all() & torch.isfinite(state.reward)
+                  .all())
+    print(f"  {TRACK_STEPS} control steps: {step_ms:.2f} ms per control "
+          f"step, {BATCH / step_ms * 1e3:.0f} env-steps/s; kernel launches "
+          f"{launches} ({launches / TRACK_STEPS:g} per control step); obs "
+          f"{tuple(obs.shape)} and reward finite {finite}; mean ncon_active "
+          f"{float(d.ncon_active.float().mean()):.3f} of {m.ncon_max}; done "
+          f"{float(state.done.mean()):.3f}")
+    if launches != TRACK_STEPS * env._n_substeps:
+      raise AssertionError(f"{name}: kernel launched {launches} times, want "
+                           f"{TRACK_STEPS * env._n_substeps}")
+    if not finite:
+      raise AssertionError(f"{name}: non-finite observations or rewards")
+    action = torch.rand(BATCH, env.action_size, generator=gen, device=dev)
+    with watch.part("profile"):
+      busy, n_launch = step_profile(env, state, action, step_ms)
+    # the kernel at this env's own inputs: its per-env model's systems
+    with watch.part("kernel vs plain"):
+      args, kw = forward.solve_inputs(env._model_for_step(state.info), d)
+      k = kernel_numbers(f"{tag} batch {BATCH}", args, kw,
+                         plain_ms.get((m.nv, nefc)))
+    plain_ms.setdefault((m.nv, nefc), k["plain_ms"])
+    if tag in ("exo", "reorient100", "airplane_lift"):
+      with watch.part("phase split"):
+        phase_split(f"{tag} kernel, batch {BATCH}",
+                    nk.phase_cycles(*args, **kw, lib=phase_lib), nk.PHASES)
+    if k["max_abs"] != 0.0:
+      raise AssertionError(f"{name}: the kernel is not bit-equal to its "
+                           f"plain version ({k['max_abs']})")
+    shapes.append(dict(env=name, tag=tag, nv=m.nv, nefc=nefc, ms=k["ms"],
+                       launches=launches, max_abs_err=k["max_abs"],
+                       bound_ms=k["bound_ms"], bound_by=k["bound_by"],
+                       plain_ms=k["plain_ms"], step_ms=step_ms,
+                       blocks_per_sm=k["blocks_per_sm"],
+                       envs_per_block=k["epb"], busy_ms=busy,
+                       launches_per_substep=n_launch / env._n_substeps))
+    del env, state, d, args, k, obs, action
+
+  # what the per-env model costs a control step: Reorient100 (a per-env
+  # capsule) against PenTwirl (the same scene, one shared model) in
+  # SAR_PAIRS pairs of turns, the first of each pair alternating
+  with watch.part("turns"):
+    sar_turns(dev)
+
+  # the tracking golden trajectories of the JAX package, on the card
+  with watch.part("goldens"):
+    with np.load(f"{ASSETS}/tracking_golden.npz") as z:
+      golden = {k: z[k] for k in z.files}
+    for tag, (name, overrides) in TRACKING_GOLDEN.items():
+      genv = myosuite_tpu_torch.make(name, overrides=overrides)
+      nb = golden[f"{tag}_actions"].shape[1]
+      gstate = genv.reset(torch.Generator(dev).manual_seed(0), nb)
+      prefix = f"{tag}_info_"
+      supplied = {k[len(prefix):]: torch.from_numpy(v).to(dev)
+                  for k, v in golden.items() if k.startswith(prefix)}
+      if "geom_idx" in supplied:
+        supplied["geom_idx"] = supplied["geom_idx"].long()
+      check_golden(f"  golden {tag}", genv, gstate, golden, f"{tag}_",
+                   actions=f"{tag}_actions", supplied=supplied)
+
+  with watch.part("per-env model check"):
+    per_env_model_check(dev)
+
+  # PPO with per-env models: every rollout step's model from its info, the
+  # auto-reset redrawing geom_idx
+  with watch.part("PPO"):
+    env = myosuite_tpu_torch.make("MtxHandReorient100-v0")
+    cfg = ppo_mod.default_config()
+    print(f"  PPO: MtxHandReorient100-v0 at default_config() "
+          f"({cfg.num_envs} envs)")
+    trained = ppo_phase(env, cfg, os.path.join(build, "ckpt_sar"), steps=1)
+  watch.report("phase 10")
+  return dict(shapes=shapes, ppo=trained["steps"])
+
+
+def sar_turns(dev):
+  """Reorient100 against PenTwirl in SAR_PAIRS pairs of turns of
+  SAR_TURN_STEPS control steps (after one untimed step), the first of each
+  pair alternating; prints each pair and the median ratio."""
+  import myosuite_tpu_torch
+  turn_env = {who: myosuite_tpu_torch.make(name) for who, name in (
+      ("PenTwirl", "MtxHandPenTwirlRandom-v0"),
+      ("Reorient100", "MtxHandReorient100-v0"))}
+  gen = torch.Generator(dev).manual_seed(4)
+  turn_state = {who: e.reset(gen, BATCH) for who, e in turn_env.items()}
+  ratios = []
+  for p in range(SAR_PAIRS):
+    ms = {}
+    order = ("PenTwirl", "Reorient100")
+    for who in (order if p % 2 == 0 else order[::-1]):
+      _, turn_state[who] = control_steps(turn_env[who], turn_state[who], gen,
+                                         1)
+      ms[who], turn_state[who] = control_steps(
+          turn_env[who], turn_state[who], gen, SAR_TURN_STEPS)
+    ratios.append(ms["Reorient100"] / ms["PenTwirl"])
+    print(f"  pair {p}: PenTwirl {ms['PenTwirl']:.2f}, Reorient100 "
+          f"{ms['Reorient100']:.2f} ms per control step")
+  print(f"  Reorient100 / PenTwirl control step: median "
+        f"{float(np.median(ratios)):.3f} over {SAR_PAIRS} pairs "
+        f"(Reorient100 slower in {sum(r > 1 for r in ratios)}; "
+        f"{min(ratios):.3f}-{max(ratios):.3f})")
+
+
 def main():
   parser = argparse.ArgumentParser()
   parser.add_argument("--parent", help="checkout whose Newton kernel to "
@@ -1036,11 +1370,15 @@ def main():
   myobase = myobase_phase(dev, build, phase_lib)
 
   mark(9)
+  # 10. per-env models, tracking and MyoDM
+  tracking = tracking_phase(dev, build, phase_lib)
+
+  mark(10)
   print("phase ends (s since the start): " + ", ".join(
       f"{n} {t:.0f}" for n, t in ends))
   # the card again, on one of the last lines (the head of a long output
   # may be cut off where it is read)
-  print(f"phases 1-9 in {time.perf_counter() - t_start:.0f} s")
+  print(f"phases 1-10 in {time.perf_counter() - t_start:.0f} s")
   print(f"nvidia-smi: {smi}")
   print(json.dumps({"kernels": [{
       "name": "newton_solver", "route": "cuda",
@@ -1065,7 +1403,8 @@ def main():
       + [{k: s[k] for k in ("nv", "nefc", "env", "ms", "launches",
                             "max_abs_err", "bound_ms", "plain_ms")}
          for s in manip["shapes"]
-         + [s for s in myobase["shapes"] if s["tag"] in NEW_MODELS]]}]}))
+         + [s for s in myobase["shapes"] if s["tag"] in NEW_MODELS]
+         + tracking["shapes"]]}]}))
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

@@ -147,9 +147,17 @@ class MyoEnv(abc.ABC):
         metrics={**state.metrics, **self._get_metrics(state, rewards)})
     return state.replace(info=self._get_info(state))
 
+  def _model_for_step(self, info: Dict[str, Any]) -> Model:
+    """The model the next control step simulates. Envs that randomize
+    masses, inertias, geom sizes or frictions per episode return a per-env
+    model (`types.per_env_model`) built from their info, so each env of
+    the batch steps its own physics."""
+    return self._model
+
   def _step_simulation(self, state: State, ctrl: torch.Tensor) -> State:
     data = state.data.replace(ctrl=ctrl)
-    data = physics_forward.step_n(self._model, data, self._n_substeps)
+    data = physics_forward.step_n(self._model_for_step(state.info), data,
+                                  self._n_substeps)
     info = {**state.info, "step_count": state.info["step_count"] + 1}
     return state.replace(data=data, info=info)
 

@@ -9,6 +9,11 @@ jnt_range (any other value starts at qpos0).
 Config keys: target_jnt_lo, target_jnt_hi (nq,), target_jnt_value
 (optional, for fixed targets), fixed_target, reset_type, pose_thd, far_th,
 ctrl_dt, sim_dt, max_episode_steps, reward_weights.
+
+`ElbowExoPoseEnv` adds a payload on the forearm, drawn per episode from
+weight_range and simulated through a per-env model, and an exoskeleton
+torque exo_assist x qfrc_bias held over each control step; its config also
+has payload_body (the forearm's body id), weight_range and exo_assist.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from typing import Any, Dict
 import torch
 
 from myosuite_tpu_torch.envs.base import MyoEnv, State
+from myosuite_tpu_torch.physics import types
 from myosuite_tpu_torch.physics.types import Data, Model
 
 
@@ -114,3 +120,68 @@ class PoseEnv(MyoEnv):
                              info["step_count"])
     return {**info, "step_count": step_count, "target_angles": target,
             "truncation": truncation}
+
+
+def payload_from_draws(u: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+  """(B,) uniform draws on [0, 1) -> payload masses in [lo, hi)."""
+  return u * (hi - lo) + lo
+
+
+class ElbowExoPoseEnv(PoseEnv):
+  """Elbow pose with a payload on the forearm, drawn per episode, and an
+  exoskeleton assist torque (the JAX package's ElbowExoPoseEnv).
+
+  The payload (info["payload_mass"], appended to the observation) adds to
+  the forearm's mass and scales its inertia by 1 + payload / mass, through
+  a per-env model; the exo applies exo_assist x qfrc_bias, taken at the
+  start of each control step and held for all its substeps.
+  """
+
+  def __init__(self, model: Model, config: Dict[str, Any]):
+    super().__init__(model, config)
+    self._payload_body = int(self._config["payload_body"])
+
+  def _model_for_step(self, info: Dict) -> Model:
+    m = self._model
+    extra = info["payload_mass"]
+    fb = self._payload_body
+    mass = m.body_mass.expand(extra.shape[0], -1).clone()
+    inertia = m.body_inertia.expand(extra.shape[0], -1, -1).clone()
+    mass[:, fb] = m.body_mass[fb] + extra
+    inertia[:, fb] = m.body_inertia[fb] * (
+        1.0 + extra / m.body_mass[fb])[:, None]
+    return types.per_env_model(m, body_mass=mass, body_inertia=inertia)
+
+  def _sample_payload(self, generator: torch.Generator,
+                      batch: int) -> torch.Tensor:
+    lo, hi = self._config["weight_range"]
+    u = torch.rand(batch, generator=generator, device=self.device)
+    return payload_from_draws(u, float(lo), float(hi))
+
+  def reset(self, generator: torch.Generator, batch: int) -> State:
+    state = super().reset(generator, batch)
+    info = {**state.info,
+            "payload_mass": self._sample_payload(generator, batch)}
+    return state.replace(info=info, obs=self._get_obs(state.data, info))
+
+  def _step_simulation(self, state: State, ctrl: torch.Tensor) -> State:
+    assist = self._config.get("exo_assist", 0.0)
+    if assist:
+      state = state.replace(data=state.data.replace(
+          qfrc_applied=assist * state.data.qfrc_bias))
+    return super()._step_simulation(state, ctrl)
+
+  def _get_obs(self, data: Data, info: Dict) -> Dict[str, torch.Tensor]:
+    base = super()._get_obs(data, info)["state"]
+    payload = info.get("payload_mass")
+    if payload is None:       # the base reset's obs, before the draw
+      payload = base.new_zeros(base.shape[0])
+    return {"state": torch.cat([base, payload[:, None]], -1)}
+
+  def _get_info(self, state: State) -> Dict:
+    info = super()._get_info(state)
+    _, boundary = self._episode_boundary(state)
+    fresh = self._sample_payload(info["generator"], boundary.shape[0])
+    info["payload_mass"] = torch.where(boundary, fresh,
+                                       state.info["payload_mass"])
+    return info

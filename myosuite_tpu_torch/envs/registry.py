@@ -7,7 +7,8 @@ registry, with its muscle-condition variants: every base id registered
 with `register_with_variants` also has an `MtxFati*` id (wrapped in the
 3CC-r `FatigueWrapper`) and an `MtxSarc*` id (sarcopenia, half the muscle
 force). Overrides merge into an env's config recursively, as
-`ConfigDict.update` merges them in the JAX package.
+`ConfigDict.update` merges them in the JAX package. The MyoDM ids
+(`envs/myodm.py`) load their scene file at `make`, never at import.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 
+from myosuite_tpu_torch.envs import myodm
 from myosuite_tpu_torch.physics import io as physics_io
 from myosuite_tpu_torch.physics import types
 
@@ -79,6 +81,17 @@ ASL_PATTERNS = (
 )
 # reafferentation: the tendon transfer EIP -> EPL
 REAF_SRC, REAF_DST = "IF_EIP", "TH_EPL"
+# the elbow exo task: the elbow pose task plus a payload on this body,
+# drawn in weight_range, and the exo's share of the gravity torque
+EXO_CONFIG = dict(payload_body="forearm", weight_range=(0.0, 2.0),
+                  exo_assist=0.6)
+# the cyclic tracking tasks (the JAX package's TrackEnv configs)
+CYCLIC_TRACK_CONFIG = dict(
+    ctrl_dt=0.02, sim_dt=0.002, norm_actions=True, reset_type="random",
+    max_episode_steps=200,
+    reward_weights=dict(pose=1.0, vel=0.2, bonus=1.0, penalty=2.0))
+TRACK_THRESHOLDS = {"finger": dict(pose_thd=0.6, far_th=4.0),
+                    "hand": dict(pose_thd=1.2, far_th=8.0)}
 
 _REGISTRY: Dict[str, Callable[..., Any]] = {}
 _ALIASES: Dict[str, str] = {}
@@ -323,6 +336,39 @@ def _reaf_hand_pose(device, overrides):
                                 dst=names.index(REAF_DST))
 
 
+def _elbow_exo(device, overrides, fixed=False):
+  """The elbow pose task with a payload and an exo assist torque."""
+  from myosuite_tpu_torch.envs.pose import ElbowExoPoseEnv
+  model, extra = physics_io.load_model(ELBOW_NPZ, device)
+  names = [str(n) for n in extra["body_names"]]
+  cfg = dict(pose_config_from_npz(extra), fixed_target=fixed,
+             **EXO_CONFIG)
+  cfg["payload_body"] = names.index(EXO_CONFIG["payload_body"])
+  return ElbowExoPoseEnv(model, _deep_merge(cfg, overrides))
+
+
+def _sar(device, overrides, variant="8"):
+  """The SAR reorientation task of `variant`'s geometry table, on the pen
+  scene with the pen task's goal centre and reward weights."""
+  from myosuite_tpu_torch.envs.sar import ReorientSAREnv
+  model, extra = physics_io.load_model(MANIP_NPZ["pen"], device)
+  cfg = manip_config_from_npz(extra)
+  del cfg["goal_pitch_limit"]
+  cfg.update(fixed_target=False, geom_variant=variant)
+  return ReorientSAREnv(model, _deep_merge(cfg, overrides))
+
+
+def _track(which, device, overrides):
+  """The cyclic tracking task of the finger or the hand model."""
+  from myosuite_tpu_torch.envs.tracking import TrackEnv, make_cyclic_reference
+  path = FINGER_NPZ if which == "finger" else HAND_REACH_NPZ
+  model, _ = physics_io.load_model(path, device)
+  cfg = dict(CYCLIC_TRACK_CONFIG, **TRACK_THRESHOLDS[which])
+  ref = make_cyclic_reference(model.jnt_range.cpu().numpy(), model.nq,
+                              device=model.device)
+  return TrackEnv(model, _deep_merge(cfg, overrides), ref)
+
+
 def _leg(device, overrides, kind="walk"):
   """The myoLeg tasks: "walk", "stand", or a terrain type for walking over
   terrain ("rough", "hilly", "stairs", "flat", "random")."""
@@ -401,3 +447,15 @@ register_with_variants("MtxArmPoseRandom-v0",
                        aliases=("myoArmPoseRandom-v0",))
 register("MtxReafHandPoseRandom-v0", _reaf_hand_pose,
          aliases=("myoReafHandPoseRandom-v0",))
+_register_pair("MtxElbowPoseExo", _elbow_exo, ("myoElbowPose1D6MExo",))
+for _variant, _rid in (("8", "Reorient8"), ("100", "Reorient100"),
+                       ("id", "ReorientID"), ("ood", "ReorientOOD")):
+  register(f"MtxHand{_rid}-v0", functools.partial(_sar, variant=_variant),
+           aliases=(f"myoHand{_rid}-v0",))
+register_with_variants("MtxFingerTrackCyclic-v0",
+                       functools.partial(_track, "finger"),
+                       aliases=("myoDmFingerTrack-v0",), suite="myodm")
+register_with_variants("MtxHandTrackCyclic-v0",
+                       functools.partial(_track, "hand"),
+                       aliases=("myoDmHandTrack-v0",), suite="myodm")
+myodm.register_all(functools.partial(register, suite="myodm"))

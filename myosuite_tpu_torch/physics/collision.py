@@ -595,7 +595,9 @@ def make_plan(m: Model) -> Plan:
 
 
 def collision(m: Model, d: Data) -> Data:
-  """Fill the fixed-capacity contact set: one batched call per class."""
+  """Fill the fixed-capacity contact set: one batched call per class. The
+  geoms' sizes and frictions may carry a leading env axis (a per-env
+  model)."""
   if m.ncon_max == 0:
     return d
   plan: Plan = m.plan["collision"]
@@ -603,7 +605,7 @@ def collision(m: Model, d: Data) -> Data:
   dists, poss, frames = [], [], []
   for group in plan.groups:
     g1, g2 = group.g1, group.g2
-    size = lambda g: m.geom_size[g].expand(B, -1, -1)
+    size = lambda g: m.geom_size[..., g, :].expand(B, -1, -1)
     fn = group.fn or _HF_FNS[group.key](d.hfield_data, m.hfield_size)
     dd, pp, nn = fn(
         d.geom_xpos[:, g1], d.geom_xmat[:, g1], size(g1),
@@ -618,9 +620,10 @@ def collision(m: Model, d: Data) -> Data:
 
   # friction, margin and gap follow the Model's tensors
   sg1, sg2 = plan.slot_g1, plan.slot_g2
-  fr = torch.maximum(m.geom_friction[sg1], m.geom_friction[sg2])
-  friction = torch.stack([fr[:, 0], fr[:, 0], fr[:, 1], fr[:, 2], fr[:, 2]],
-                         1)
+  fr = torch.maximum(m.geom_friction[..., sg1, :],
+                     m.geom_friction[..., sg2, :])
+  friction = torch.stack([fr[..., 0], fr[..., 0], fr[..., 1], fr[..., 2],
+                          fr[..., 2]], -1)
   margin = torch.maximum(m.geom_margin[sg1], m.geom_margin[sg2])
   gap = torch.maximum(m.geom_gap[sg1], m.geom_gap[sg2])
   includemargin = (margin - gap).expand(B, ncon)

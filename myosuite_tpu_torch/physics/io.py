@@ -242,11 +242,12 @@ def model_from_numpy(fields: Dict[str, Any], device=None) -> Model:
 
 def save_model(path: str, fields: Dict[str, np.ndarray],
                **extra: np.ndarray) -> None:
-  """Write a field dict (and any extra arrays) as an uncompressed .npz."""
+  """Write a field dict (and any extra arrays) as a compressed .npz
+  (`load_model` reads compressed and uncompressed files alike)."""
   clash = set(fields) & set(extra)
   if clash:
     raise ValueError(f"extra keys clash with model fields: {sorted(clash)}")
-  np.savez(path, **fields, **extra)
+  np.savez_compressed(path, **fields, **extra)
 
 
 def load_model(path: str, device=None

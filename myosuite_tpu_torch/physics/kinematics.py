@@ -201,28 +201,32 @@ def kinematics(m: Model, d: Data) -> Data:
 
 
 def com_pos(m: Model, d: Data) -> Data:
-  """Subtree CoM, CoM-frame inertia (cinert) and dof axes (cdof)."""
+  """Subtree CoM, CoM-frame inertia (cinert) and dof axes (cdof). The
+  masses (nbody,) and inertias (nbody, 3) may carry a leading env axis (a
+  per-env model)."""
   plan: Plan = m.plan["kinematics"]
   mass = m.body_mass
-  wmass = mass[:, None] * d.xipos
-  subtree_mass = m.body_subtreemask @ mass
+  wmass = mass[..., None] * d.xipos
+  subtree_mass = (m.body_subtreemask @ mass if mass.dim() == 1
+                  else mass @ m.body_subtreemask.T)
   subtree_com = (torch.matmul(m.body_subtreemask, wmass)
-                 / torch.clamp(subtree_mass, min=1e-12)[:, None])
+                 / torch.clamp(subtree_mass, min=1e-12)[..., None])
   root_com = subtree_com[:, plan.root]
 
   # R diag(i) R^T and the parallel-axis shift to the root's subtree CoM
   ximat = d.ximat
   imat_w = (ximat[..., :, None, :] * ximat[..., None, :, :]
-            * m.body_inertia[:, None, None, :]).sum(-1)
+            * m.body_inertia[..., None, None, :]).sum(-1)
   dvec = d.xipos - root_com
   eye = torch.eye(3, dtype=dvec.dtype, device=dvec.device)
-  i_off = imat_w + mass[:, None, None] * (
+  i_off = imat_w + mass[..., None, None] * (
       math.dot(dvec, dvec)[..., None, None] * eye
       - dvec[..., :, None] * dvec[..., None, :])
   cinert = torch.cat([
       torch.stack([i_off[..., 0, 0], i_off[..., 1, 1], i_off[..., 2, 2],
                    i_off[..., 0, 1], i_off[..., 0, 2], i_off[..., 1, 2]], -1),
-      mass[:, None] * dvec, mass.expand_as(dvec[..., 0])[..., None]], dim=-1)
+      mass[..., None] * dvec, mass.expand_as(dvec[..., 0])[..., None]],
+      dim=-1)
 
   cdof = d.cdof.new_zeros(d.cdof.shape)
   for g in plan.cdof_groups:

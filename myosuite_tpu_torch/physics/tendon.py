@@ -156,7 +156,8 @@ def tendon(m: Model, d: Data) -> Data:
     side = d.site_xpos[:, s.side] if s.sided else None
     w1, w2, wlen = wrap_mod.wrap(pa, pb, d.geom_xpos[:, s.geom],
                                  d.geom_xmat[:, s.geom],
-                                 m.geom_size[s.geom, 0], side, s.sphere)
+                                 m.geom_size[..., s.geom, 0], side,
+                                 s.sphere)
     l1, j1 = _seg_contrib(m, d, pa, w1, s.ba, s.gb)
     l2, j2 = _seg_contrib(m, d, w2, pb, s.gb, s.bb)
     ls, js = _seg_contrib(m, d, pa, pb, s.ba, s.bb)

@@ -9,6 +9,11 @@ and kept on the device in `Model.plan`.
 
 `Data` holds the state and every per-step quantity of a batch of envs. All
 its tensors lead with the env axis.
+
+A per-env model (`per_env_model`) gives each env of a batch its own values
+of the PER_ENV_FIELDS: those tensors lead with the env axis, and the
+physics stages that read them (`kinematics.com_pos`, `tendon.tendon`,
+`collision.collision`) broadcast either form.
 """
 
 from __future__ import annotations
@@ -129,6 +134,13 @@ PARAM_FIELDS = (
     "actuator_gear", "actuator_acc0", "actuator_length0",
     "actuator_lengthrange", "hfield_size")
 
+# Parameters that may carry a leading env axis (B,) + their shared shape in
+# a per-env model: the bodies' masses and inertias and the geoms' sizes and
+# frictions, which envs randomize per episode (`MyoEnv._model_for_step`).
+_SHARED_DIMS = {"body_mass": 1, "body_inertia": 2, "geom_size": 2,
+                "geom_friction": 2}
+PER_ENV_FIELDS = tuple(_SHARED_DIMS)
+
 # Option fields: static Python scalars, then float32 tensors. Stored in a
 # field dict under "opt_<name>".
 OPTION_STATIC = ("timestep", "integrator", "iterations", "ls_iterations",
@@ -180,6 +192,23 @@ class Model:
       if d is not None and name in d:
         return d[name]
     raise AttributeError(name)
+
+
+def per_env_model(m: Model, **fields: torch.Tensor) -> Model:
+  """`m` with some of the PER_ENV_FIELDS replaced by per-env tensors of
+  shape (B,) + the shared field's shape. The new Model shares `m`'s plan,
+  index tables and every other field, so nothing is rebuilt; the derived
+  fields (actuator_acc0 and the body, dof and tendon invweight0) keep
+  `m`'s values, as the JAX package's `Model.replace` keeps them."""
+  for k, v in fields.items():
+    if k not in PER_ENV_FIELDS:
+      raise ValueError(f"{k} is not a per-env field; these are "
+                       f"{PER_ENV_FIELDS}")
+    shared = m.params[k].shape[-_SHARED_DIMS[k]:]
+    if v.dim() != _SHARED_DIMS[k] + 1 or v.shape[1:] != shared:
+      raise ValueError(f"{k} must be (B,) + {tuple(shared)}, got "
+                       f"{tuple(v.shape)}")
+  return dataclasses.replace(m, params={**m.params, **fields})
 
 
 @dataclasses.dataclass

@@ -516,22 +516,39 @@ def test_autoreset_resets_nested_info(monkeypatch):
 
 
 def test_registry_matches_jax():
-  """The port's 95 ids are the JAX registry's ids of the 39 ported bases
-  and the Fati / Sarc variants of 28 of them, each with JAX's aliases and
-  suite."""
+  """The port's 301 ids are the JAX registry's but for its 7 MyoChallenge
+  (suite "myochal") ids: the ported bases, the Fati / Sarc variants of all
+  32 variant bases (no variant base is missing), the SAR and MyoDM ids,
+  each with JAX's aliases and suite."""
+  from myosuite_tpu_torch.envs import myodm
   ours = set(registry.registered_envs())
-  assert ours == _port_ids() and len(ours) == 95
+  new_bases = ["MtxElbowPoseExoRandom-v0", "MtxElbowPoseExoFixed-v0",
+               "MtxFingerTrackCyclic-v0", "MtxHandTrackCyclic-v0"]
+  sar = {f"MtxHand{r}-v0" for r in ("Reorient8", "Reorient100",
+                                    "ReorientID", "ReorientOOD")}
+  dm = ({f"MtxHand{s}-v0" for s, _, _ in myodm.TRACK_SPECS}
+        | {f"MtxHand{o.title()}{k}-v0" for o in myodm.GRAB_OBJECTS
+           for k in ("Fixed", "Random")})
+  bases = VARIANT_BASES + new_bases
+  want = (set(bases) | set(OTHER_BASES) | sar | dm
+          | {f"Mtx{tag}{b[3:]}" for b in bases for tag in ("Fati", "Sarc")})
+  assert ours == want and len(ours) == 301 and len(dm) == 190
+  assert _port_ids() <= ours
   theirs = set(jax_registry.registered_envs())
-  assert ours <= theirs
+  assert ours <= theirs and len(theirs) == 308
+  missing = theirs - ours
+  assert len(missing) == 7
+  assert {jax_registry.suite_of(n) for n in missing} == {"myochal"}
+  assert {n for n in theirs if jax_registry.suite_of(n) == "myochal"} == \
+      missing
   for tag in ("Fati", "Sarc"):
     variants = {n for n in theirs if n.startswith("Mtx" + tag)}
-    bases = {"Mtx" + n[3 + len(tag):] for n in variants}
-    assert bases - set(VARIANT_BASES) == {
-        "MtxFingerTrackCyclic-v0", "MtxHandTrackCyclic-v0",
-        "MtxElbowPoseExoRandom-v0", "MtxElbowPoseExoFixed-v0"}
+    assert variants <= ours
+    assert {"Mtx" + n[3 + len(tag):] for n in variants} == set(bases)
   for name in ours:
     assert registry.suite_of(name) == jax_registry.suite_of(name), name
   assert registry.suite_of("myoArmReachRandom-v0") == "myoedits"
+  assert registry.suite_of("MyoHandAppleLift-v0") == "myodm"
   want = {a: n for a, n in jax_registry._ALIASES.items() if n in ours}
   assert registry._ALIASES == want
 

@@ -24,7 +24,7 @@ from myosuite_tpu_torch.physics import io as torch_io
 from myosuite_tpu_torch.physics import types as torch_types
 from tests.common import CHAIN_XML, MUSCLE_XML
 from tests.test_actuation_parity import WRAP_XML
-from tests.torch_common import EXPORTS, jax_fields
+from tests.torch_common import EXPORTS, jax_fields, write_export
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -99,8 +99,11 @@ env = myosuite_tpu_torch.make("MtxHandReachRandom-v0", device="cpu")
 state = env.reset(torch.Generator().manual_seed(0), batch=2)
 state = env.step(state, torch.full((2, env.action_size), 0.5))
 assert torch.isfinite(state.obs["state"]).all()
+from myosuite_tpu_torch.envs import myodm, sar, tracking
+from myosuite_tpu_torch.logger import reference_motion
 for name in ("MtxFatiArmReachFixed-v0", "MtxSarcTorsoPoseFixed-v0",
-             "MtxReafHandPoseRandom-v0"):
+             "MtxReafHandPoseRandom-v0", "MtxHandReorient8-v0",
+             "MtxElbowPoseExoRandom-v0", "MtxHandMugLift-v0"):
   env = myosuite_tpu_torch.make(name, device="cpu")
   state = env.step(env.reset(torch.Generator().manual_seed(0), batch=1),
                    torch.full((1, env.action_size), 0.5))
@@ -124,8 +127,9 @@ print("ok")
 
 def test_port_imports_no_jax_and_no_myosuite_tpu():
   """With jax and mujoco unimportable, the port imports every module,
-  steps the committed hand model, the Fati arm reach, the Sarc torso and
-  the Reaf hand, takes a PPO training step on the finger, and loads no
+  steps the committed hand model, the Fati arm reach, the Sarc torso, the
+  Reaf hand, SAR's Reorient8 and ElbowPoseExoRandom (per-env models) and
+  a MyoDM id, takes a PPO training step on the finger, and loads no
   module of the JAX package."""
   proc = subprocess.run([sys.executable, "-c", _ISOLATION], cwd=_REPO,
                         capture_output=True, text=True, timeout=300)
@@ -142,11 +146,8 @@ def test_make_needs_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 def _write_npz_files():
-  for name, export in EXPORTS.items():
-    fields, extra = export()
-    path = os.path.join(torch_registry.ASSETS, name)
-    torch_io.save_model(path, fields, **extra)
-    print("wrote", path)
+  for name in EXPORTS:
+    write_export(name)
 
 
 if __name__ == "__main__":

@@ -7,6 +7,7 @@ Imports neither JAX nor MuJoCo, so it runs where only PyTorch is installed:
 Every test skips without a CUDA card.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -148,6 +149,55 @@ def test_kernel_bit_equal_at_myobase_inputs(cuda, name):
   for o, r, n in zip(out, ref, NAMES):
     assert torch.isfinite(o).all(), n
     assert torch.equal(o, r), (n, float((o - r).abs().max()))
+
+
+# the envs of chip_smoke.py's phase 10: per-env models (the exo payload,
+# SAR's capsule), the cyclic tracks and one MyoDM id per object class
+TRACKING_IDS = ("MtxElbowPoseExoRandom-v0", "MtxHandReorient100-v0",
+                "MtxHandTrackCyclic-v0", "MtxFingerTrackCyclic-v0",
+                "MtxHandAppleLift-v0", "MtxHandAirplaneLift-v0",
+                "MtxHandMugLift-v0", "MtxHandFlutePass-v0",
+                "MtxHandAppleRandom-v0")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", TRACKING_IDS)
+def test_kernel_bit_equal_at_tracking_inputs(cuda, name):
+  """The elbow with a payload (nv 1), SAR's per-env capsule (29, 87), the
+  cyclic tracks (23, 23) and (4, 4), the MyoDM sphere (29, 83), box and
+  cylinder hulls (29, 151) and capsule (29, 87), at each env's own solver
+  inputs (its per-env model's) after 3 control steps: outputs equal to
+  the plain version's."""
+  import myosuite_tpu_torch
+  env = myosuite_tpu_torch.make(name, device=cuda)
+  gen = torch.Generator(cuda).manual_seed(0)
+  state = env.reset(gen, 256)
+  for _ in range(3):
+    state = env.step(state, torch.rand(256, env.action_size, generator=gen,
+                                       device=cuda))
+  args, kw = forward.solve_inputs(env._model_for_step(state.info),
+                                  state.data)
+  out = newton_kernel.newton_solve(*args, **kw)
+  ref = newton_kernel.newton_solve_reference(*args, **kw)
+  for o, r, n in zip(out, ref, NAMES):
+    assert torch.isfinite(o).all(), n
+    assert torch.equal(o, r), (n, float((o - r).abs().max()))
+
+
+@pytest.mark.cuda
+def test_kernel_takes_every_myodm_scene(cuda):
+  """Each committed MyoDM scene's recorded (nv, nefc) fits a block's
+  shared memory in the built library."""
+  import glob
+  import os
+  from myosuite_tpu_torch.envs.registry import ASSETS
+  lib = newton_kernel._library()
+  paths = sorted(glob.glob(os.path.join(ASSETS, "myodm", "*.npz")))
+  assert len(paths) == 50
+  for path in paths:
+    with np.load(path) as z:
+      nv, nefc = int(z["myodm_nv"]), int(z["myodm_nefc"])
+    assert newton_kernel._envs_per_block(lib, nv, nefc) >= 1, path
 
 
 @pytest.mark.cuda

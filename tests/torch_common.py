@@ -138,14 +138,23 @@ def hand_reach_export():
                        lambda env: _reach_cfg(env, "cfg_"))
 
 
+def _body_names(mj):
+  """The body names of a MuJoCo model, as a string array."""
+  return {"body_names": np.asarray([
+      mujoco.mj_id2name(mj, mujoco.mjtObj.mjOBJ_BODY, b)
+      for b in range(mj.nbody)])}
+
+
 def elbow_export():
-  """Field dict and pose config of the JAX package's MtxElbowPoseRandom-v0
+  """Field dict, pose config and body names (the exo task's payload body)
+  of the JAX package's MtxElbowPoseRandom-v0
   (myosuite_tpu_torch/assets/myoelbow.npz)."""
   import myosuite_tpu
   from myosuite_tpu_torch.physics import io as torch_io
 
   env = myosuite_tpu.make("MtxElbowPoseRandom-v0")
-  return torch_io.model_fields(env.mj_model), _pose_cfg(env)
+  return (torch_io.model_fields(env.mj_model),
+          dict(_pose_cfg(env), **_body_names(env.mj_model)))
 
 
 def finger_export():
@@ -261,6 +270,34 @@ def manip_export(obj):
   return torch_io.model_fields(env.mj_model), manip_cfg(env, ENVS[obj])
 
 
+def myodm_export(obj):
+  """Field dict of the JAX package's MyoDM scene of the GRAB object `obj`
+  (the palm-up myoHand and the object's proxy), its object site's id and
+  its (nv, nefc, ncon_max), after checking that the Newton kernel takes
+  the scene's nv (myosuite_tpu_torch/assets/myodm/<obj>.npz; the card
+  test test_kernel_takes_every_myodm_scene checks its shared memory)."""
+  from myosuite_tpu.envs import myodm as jax_myodm
+  from myosuite_tpu_torch.physics import io as torch_io
+  from myosuite_tpu_torch.physics import newton_kernel
+
+  mj = mujoco.MjModel.from_xml_string(jax_myodm.scene_xml(obj))
+  fields = torch_io.model_fields(mj)
+  model = torch_io.model_from_numpy(fields, "cpu")
+  nv, nefc = model.nv, model.plan["constraint"].nefc
+  assert nv <= newton_kernel.MAX_NV, (obj, nv)
+  site = mujoco.mj_name2id(mj, mujoco.mjtObj.mjOBJ_SITE, "object_site")
+  assert site >= 0
+  i32 = lambda x: np.asarray(x, dtype=np.int32)
+  return fields, {"cfg_myodm_object_site": i32(site), "myodm_nv": i32(nv),
+                  "myodm_nefc": i32(nefc),
+                  "myodm_ncon_max": i32(model.ncon_max)}
+
+
+def _grab_objects():
+  from myosuite_tpu_torch.envs.myodm import GRAB_OBJECTS
+  return tuple(GRAB_OBJECTS)
+
+
 # committed model file -> the function that exports it afresh
 EXPORTS = {"myohand_reach.npz": hand_reach_export,
            "myoelbow.npz": elbow_export, "myofinger.npz": finger_export,
@@ -277,4 +314,21 @@ EXPORTS = {"myohand_reach.npz": hand_reach_export,
                lambda env: _reach_cfg(env, "cfg_")),
            "myoarm.npz": functools.partial(
                _named_export, "MtxArmPoseRandom-v0",
-               functools.partial(_pose_cfg, named=True))}
+               functools.partial(_pose_cfg, named=True)),
+           # the MyoDM scenes, one file per GRAB object
+           **{f"myodm/{obj}.npz": functools.partial(myodm_export, obj)
+              for obj in _grab_objects()}}
+
+
+def write_export(name):
+  """Export the model file `name` of EXPORTS afresh into the port's
+  assets."""
+  import os
+  from myosuite_tpu_torch.envs.registry import ASSETS
+  from myosuite_tpu_torch.physics import io as torch_io
+
+  fields, extra = EXPORTS[name]()
+  path = os.path.join(ASSETS, name)
+  os.makedirs(os.path.dirname(path), exist_ok=True)
+  torch_io.save_model(path, fields, **extra)
+  print("wrote", path)
