@@ -12,7 +12,7 @@ contacts: MtxLegWalk-v0 at batch 4096 (16 timed control steps, its
 profile, the kernel against its plain version at the leg's own solver
 inputs, the leg golden trajectories), MtxLegWalkRough-v0 with a terrain
 per env, and one timed PPO training step on the leg. Phase 8 drives the
-five in-hand manipulation envs at batch 4096 (8 timed control steps
+five in-hand manipulation envs at batch 4096 (4 timed control steps
 each, the kernel against its plain version at each env's own inputs,
 occupancy, golden replays) and one timed PPO training step on
 MtxHandObjHoldRandom-v0. Phase 9 drives the muscle conditions and the
@@ -26,13 +26,21 @@ MtxFatiHandReachRandom-v0 and the myobase golden replays. Phase 10
 drives per-env models, tracking and MyoDM at batch 4096: the elbow with a
 payload and an exo torque, SAR's Reorient100 (a capsule per env), the
 hand's and finger's cyclic tracks and one MyoDM id per object class
-(sphere, box hull, cylinder hull, capsule) plus a Random object target (8
+(sphere, box hull, cylinder hull, capsule) plus a Random object target (4
 timed control steps each, the kernel against its plain version at each
 env's own per-env inputs), Reorient100 against PenTwirl in pairs of turns,
 the tracking golden replays, the per-env model check (two geometries in
 one batch against batch-1 runs, the first substep's solve taken apart in
 float32 and float64) and one timed PPO training step on
-MtxHandReorient100-v0, then phase 10's seconds by part. Prints one JSON
+MtxHandReorient100-v0, then phase 10's seconds by part. Phase 11 drives
+the seven MyoChallenge ids at batch 4096: ChaseTag (chase and evade) with
+its scripted opponent on a patch arena, Soccer with its goalkeeper,
+RunTrack with the OSL controller, Relocate (a per-env object), Bimanual
+and TableTennis (8 timed control steps each, the kernel against its plain
+version at each env's own inputs), the OSL's phases, ChaseTag and Soccer
+through the auto-reset (a done env's opponent or keeper fresh), the
+challenge golden replays and one timed PPO training step on
+MtxRunTrack-v0, whose policy commands nu - 2 actuators. Prints one JSON
 line of kernel numbers (with a `shapes` list per env and (nv, nefc)) and,
 last, {"ok": true, "device": {...}}. Exits non-zero, with no result line,
 when any phase fails or when there is no CUDA card.
@@ -62,7 +70,7 @@ STEPS = 16               # bench.py's protocol: 16 control steps
 PPO_STEPS = 1            # timed PPO training steps (phase 5)
 LEG_PPO_STEPS = 1        # timed PPO training steps on the leg (phase 7)
 ROUGH_STEPS = 2          # control steps on terrain (phase 7)
-MANIP_STEPS = 8          # control steps of each manipulation env (phase 8)
+MANIP_STEPS = 4          # control steps of each manipulation env (phase 8)
 # phase 8: each model file's env at batch 4096, and its golden env (a Fixed
 # id, or fixed_target=True)
 MANIP = (("hold", "MtxHandObjHoldRandom-v0", "MtxHandObjHoldFixed-v0", None),
@@ -73,7 +81,7 @@ MANIP = (("hold", "MtxHandObjHoldRandom-v0", "MtxHandObjHoldFixed-v0", None),
           {"fixed_target": True}),
          ("key", "MtxHandKeyTurnRandom-v0", "MtxHandKeyTurnFixed-v0", None))
 MYOBASE_STEPS = 8        # control steps of each env of phase 9
-TURN_PAIRS = 6           # phase 9: pairs of plain / Fati hand turns
+TURN_PAIRS = 3           # phase 9: pairs of plain / Fati hand turns
 TURN_STEPS = 4           # control steps a turn
 # phase 9: the envs at batch 4096 (the first three are the new models)
 MYOBASE = (("torso", "MtxTorsoPoseRandom-v0"),
@@ -94,8 +102,8 @@ MYOBASE_GOLDEN = {
     "sarc": ("MtxSarcHandReachFixed-v0", None, False),
     "reaf": ("MtxReafHandPoseRandom-v0", {"reset_type": "none"}, True),
     "fati": ("MtxFatiHandReachFixed-v0", None, False)}
-TRACK_STEPS = 8          # control steps of each env of phase 10
-SAR_PAIRS = 4            # phase 10: pairs of PenTwirl / Reorient100 turns
+TRACK_STEPS = 4          # control steps of each env of phase 10
+SAR_PAIRS = 2            # phase 10: pairs of PenTwirl / Reorient100 turns
 SAR_TURN_STEPS = 3       # control steps a turn
 # phase 10: per-env models, tracking and MyoDM at batch 4096 (tag, id)
 TRACKING = (("exo", "MtxElbowPoseExoRandom-v0"),
@@ -112,6 +120,17 @@ TRACKING = (("exo", "MtxElbowPoseExoRandom-v0"),
 # supplied before each step are stored as "<tag>_info_<key>"
 TRACKING_GOLDEN = {tag: (name, {"reset_type": "none"} if tag == "exo"
                          else None) for tag, name in TRACKING}
+CHAL_STEPS = 8           # control steps of each env of phase 11
+RESET_STEPS = 2          # phase 11: control steps through the auto-reset
+# phase 11: the MyoChallenge envs at batch 4096 (tag, id); the tags are
+# tests/test_torch_challenge.py::IDS's, which wrote the golden file
+CHALLENGE = (("chasetag", "MtxChaseTag-v0"),
+             ("evade", "MtxChaseTagEvade-v0"),
+             ("soccer", "MtxSoccer-v0"),
+             ("runtrack", "MtxRunTrack-v0"),
+             ("relocate", "MtxRelocate-v0"),
+             ("bimanual", "MtxBimanual-v0"),
+             ("tabletennis", "MtxTableTennis-v0"))
 # Kernel vs plain version, on every output: |ours - ref| <= TOL |ref| +
 # TOL max(1, max |ref|). The plain version sums in the kernel's order and the
 # kernel is built without multiply-add contraction, so most outputs agree
@@ -1223,6 +1242,179 @@ def sar_turns(dev):
         f"{min(ratios):.3f}-{max(ratios):.3f})")
 
 
+def autoreset_check(dev, name, entry):
+  """`name` through the AutoResetWrapper for RESET_STEPS control steps at
+  batch 4096 with every other env done at each step: a done env's
+  opponent (keeper) state is every field of the wrapper's fresh reset's
+  (its noise table included, t back at 0), a running env's the stepped
+  one. Raises on a miss; returns ms per wrapped control step."""
+  import myosuite_tpu_torch
+  from myosuite_tpu_torch.envs.wrappers import AutoResetWrapper
+  env = myosuite_tpu_torch.make(name)
+  done = (torch.arange(BATCH, device=dev) % 2).float()
+  env._get_done = lambda state: done
+  wrapped = AutoResetWrapper(env)
+  gen = torch.Generator(dev).manual_seed(6)
+  state = wrapped.reset(gen, BATCH)
+  took, keep = done > 0, done == 0
+  ms = []
+  for i in range(RESET_STEPS):
+    action = torch.rand(BATCH, env.action_size, generator=gen, device=dev)
+    copy = torch.Generator(dev)
+    copy.set_state(state.info["reset_generator"].get_state())
+    stepped = env.step(state, action)
+    fresh = env.reset(copy, BATCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = wrapped.step(state, action)
+    torch.cuda.synchronize()
+    ms.append((time.perf_counter() - t0) * 1e3)
+    got, new, old = (x.info[entry] for x in (state, fresh, stepped))
+    for f in ("pose", "policy", "noise", "t"):
+      g, n, o = (getattr(x, f) for x in (got, new, old))
+      if not (torch.equal(g[took], n[took]) and torch.equal(g[keep],
+                                                            o[keep])):
+        raise AssertionError(f"{name} auto-reset step {i}: {entry}.{f} of "
+                             f"the done envs is not the fresh reset's")
+    if not (bool((got.t[took] == 0).all())
+            and bool((got.t[keep] == i + 1).all())):
+      raise AssertionError(f"{name} auto-reset step {i}: {entry}.t wrong")
+  print(f"  auto-reset {name}: {RESET_STEPS} control steps with "
+        f"{int(took.sum())} of {BATCH} envs done at each: {entry} of every "
+        f"done env fresh (pose, policy, noise table, t 0), of every running "
+        f"env kept; {np.mean(ms):.2f} ms per wrapped control step")
+  return float(np.mean(ms))
+
+
+def challenge_golden(label, tag, golden, dev):
+  """The golden's reset and actions of `tag` through the port's env on
+  the card, each field within the tolerance stored beside it."""
+  import myosuite_tpu_torch
+  from myosuite_tpu_torch.envs.challenge import nested_info, state_from
+  env = myosuite_tpu_torch.make(dict(CHALLENGE)[tag])
+  nb = golden[f"{tag}_actions"].shape[1]
+  state = env.reset(torch.Generator(dev).manual_seed(0), nb)
+  at = lambda k: torch.from_numpy(golden[f"{tag}_{k}"]).to(dev)
+  pre = f"{tag}_init_info_"
+  info = nested_info({k[len(pre):]: torch.from_numpy(v).to(dev)
+                      for k, v in golden.items() if k.startswith(pre)})
+  state = state_from(env, state, at("init_qpos"), at("init_qvel"), info,
+                     at("init_hfield") if f"{tag}_init_hfield" in golden
+                     else None)
+  check_golden(label, env, state, golden, f"{tag}_",
+               actions=f"{tag}_actions")
+
+
+def challenge_phase(dev, build, phase_lib):
+  """Phase 11: the seven MyoChallenge ids at batch 4096 through the Newton
+  kernel (each env's control step, profile, and the kernel against its
+  plain version at the env's own inputs, per-env for Relocate; the phase
+  split at Relocate's and Bimanual's shapes), ChaseTag's opponent redraw
+  alone, the OSL phases after the rollout, ChaseTag and Soccer through
+  the auto-reset, one PPO training step of MtxRunTrack-v0 (a policy of
+  nu - 2 actions) and the challenge golden replays. Raises on any failed
+  check; returns the kernel's numbers per env."""
+  import myosuite_tpu_torch
+  from myosuite_tpu_torch.envs.registry import ASSETS
+  from myosuite_tpu_torch.physics import forward
+  from myosuite_tpu_torch.physics import newton_kernel as nk
+  from myosuite_tpu_torch.train import ppo as ppo_mod
+
+  watch = Stopwatch()
+  shapes = []
+  plain_ms = {}        # (nv, nefc) -> the plain version's ms, timed once
+  for tag, name in CHALLENGE:
+    with watch.part("make"):
+      env = myosuite_tpu_torch.make(name)
+    m = env.model
+    gen = torch.Generator(dev).manual_seed(0)
+    t0 = time.perf_counter()
+    with watch.part("reset"):
+      state = env.reset(gen, BATCH)
+    nefc = m.plan["constraint"].nefc
+    print(f"phase 11 challenge: {name} ({type(env).__name__}) reset at "
+          f"batch {BATCH} in {time.perf_counter() - t0:.2f} s; nv {m.nv}, "
+          f"nu {m.nu}, actions {env.action_size}, nefc {nefc}, contact "
+          f"slots {m.ncon_max}")
+    with watch.part("warm-up step"):
+      _, state = control_steps(env, state, gen, 1)
+    nk.launches = 0
+    with watch.part("timed steps"):
+      step_ms, state = control_steps(env, state, gen, CHAL_STEPS)
+    launches = nk.launches
+    obs, d = state.obs["state"], state.data
+    finite = bool(torch.isfinite(obs).all() & torch.isfinite(state.reward)
+                  .all())
+    print(f"  {CHAL_STEPS} control steps: {step_ms:.2f} ms per control "
+          f"step, {BATCH / step_ms * 1e3:.0f} env-steps/s; kernel launches "
+          f"{launches} ({launches / CHAL_STEPS:g} per control step); obs "
+          f"{tuple(obs.shape)} and reward finite {finite}; mean ncon_active "
+          f"{float(d.ncon_active.float().mean()):.3f} of {m.ncon_max}; done "
+          f"{float(state.done.mean()):.3f}")
+    if launches != CHAL_STEPS * env._n_substeps:
+      raise AssertionError(f"{name}: kernel launched {launches} times, want "
+                           f"{CHAL_STEPS * env._n_substeps}")
+    if not finite:
+      raise AssertionError(f"{name}: non-finite observations or rewards")
+    if tag == "runtrack":
+      phase = state.info["osl_phase"]
+      counts = torch.bincount(phase.long(), minlength=4).tolist()
+      print(f"  OSL phases after {CHAL_STEPS + 1} control steps (e_stance, "
+            f"l_stance, e_swing, l_swing): {counts}")
+      if not bool(((phase >= 0) & (phase <= 3)).all()):
+        raise AssertionError("RunTrack: an OSL phase id outside 0-3")
+    if tag == "chasetag":
+      with watch.part("opponent redraw"):
+        redraw = cuda_ms(lambda: env._new_opponent(gen, BATCH), 5)
+      print(f"  the opponent redraw of every control step's info "
+            f"(reset_opponent at batch {BATCH}, a colored-noise table of "
+            f"{env.max_episode_steps} x 2 per env): {redraw:.3f} ms")
+    action = torch.rand(BATCH, env.action_size, generator=gen, device=dev)
+    with watch.part("profile"):
+      busy, n_launch = step_profile(env, state, action, step_ms)
+    with watch.part("kernel vs plain"):
+      args, kw = forward.solve_inputs(env._model_for_step(state.info), d)
+      k = kernel_numbers(f"{tag} batch {BATCH}", args, kw,
+                         plain_ms.get((m.nv, nefc)))
+    plain_ms.setdefault((m.nv, nefc), k["plain_ms"])
+    if tag in ("relocate", "bimanual"):
+      with watch.part("phase split"):
+        phase_split(f"{tag} kernel, batch {BATCH}",
+                    nk.phase_cycles(*args, **kw, lib=phase_lib), nk.PHASES)
+    if k["max_abs"] != 0.0:
+      raise AssertionError(f"{name}: the kernel is not bit-equal to its "
+                           f"plain version ({k['max_abs']})")
+    shapes.append(dict(env=name, tag=tag, nv=m.nv, nefc=nefc, ms=k["ms"],
+                       launches=launches, max_abs_err=k["max_abs"],
+                       bound_ms=k["bound_ms"], bound_by=k["bound_by"],
+                       plain_ms=k["plain_ms"], step_ms=step_ms,
+                       blocks_per_sm=k["blocks_per_sm"],
+                       envs_per_block=k["epb"], busy_ms=busy,
+                       launches_per_substep=n_launch / env._n_substeps))
+    del env, state, d, args, k, obs, action
+
+  with watch.part("auto-reset"):
+    autoreset_check(dev, "MtxChaseTag-v0", "opponent")
+    autoreset_check(dev, "MtxSoccer-v0", "keeper")
+
+  # PPO where the policy's action width is not nu: the OSL's two motors
+  with watch.part("PPO"):
+    env = myosuite_tpu_torch.make("MtxRunTrack-v0")
+    cfg = ppo_mod.default_config()
+    print(f"  PPO: MtxRunTrack-v0 at default_config() ({cfg.num_envs} "
+          f"envs, {env.action_size} actions of nu {env.model.nu})")
+    trained = ppo_phase(env, cfg, os.path.join(build, "ckpt_runtrack"),
+                        steps=1)
+
+  with watch.part("goldens"):
+    with np.load(f"{ASSETS}/challenge_golden.npz") as z:
+      golden = {k: z[k] for k in z.files}
+    for tag, _ in CHALLENGE:
+      challenge_golden(f"  golden {tag}", tag, golden, dev)
+  watch.report("phase 11")
+  return dict(shapes=shapes, ppo=trained["steps"])
+
+
 def main():
   parser = argparse.ArgumentParser()
   parser.add_argument("--parent", help="checkout whose Newton kernel to "
@@ -1374,11 +1566,15 @@ def main():
   tracking = tracking_phase(dev, build, phase_lib)
 
   mark(10)
+  # 11. the MyoChallenge envs
+  chal = challenge_phase(dev, build, phase_lib)
+
+  mark(11)
   print("phase ends (s since the start): " + ", ".join(
       f"{n} {t:.0f}" for n, t in ends))
   # the card again, on one of the last lines (the head of a long output
   # may be cut off where it is read)
-  print(f"phases 1-10 in {time.perf_counter() - t_start:.0f} s")
+  print(f"phases 1-11 in {time.perf_counter() - t_start:.0f} s")
   print(f"nvidia-smi: {smi}")
   print(json.dumps({"kernels": [{
       "name": "newton_solver", "route": "cuda",
@@ -1404,7 +1600,7 @@ def main():
                             "max_abs_err", "bound_ms", "plain_ms")}
          for s in manip["shapes"]
          + [s for s in myobase["shapes"] if s["tag"] in NEW_MODELS]
-         + tracking["shapes"]]}]}))
+         + tracking["shapes"] + chal["shapes"]]}]}))
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

@@ -93,6 +93,42 @@ def generate(generator: torch.Generator, codes: torch.Tensor,
   return from_draws(codes, *draws(generator, codes.shape[0], shape))
 
 
+def arena_draws(generator: torch.Generator, batch: int,
+                shape: Tuple[int, int], patches: int = 2):
+  """The draws of `chasetag_arena`: per (env, patch) a type code in
+  {FLAT, ROUGH, HILLY} (B, P * P), the patch's grid (B, P * P, h, w) and
+  scalar (B, P * P) uniforms, for patches of h, w = shape // P."""
+  dev, n = generator.device, patches * patches
+  ph, pw = shape[0] // patches, shape[1] // patches
+  return (torch.randint(0, 3, (batch, n), generator=generator, device=dev),
+          torch.rand((batch, n, ph, pw), generator=generator, device=dev),
+          torch.rand((batch, n), generator=generator, device=dev))
+
+
+def arena_from_draws(codes: torch.Tensor, grid_u: torch.Tensor,
+                     scalar_u: torch.Tensor, shape: Tuple[int, int],
+                     patches: int = 2) -> torch.Tensor:
+  """The ChaseTag arena (B, H, W): a patches x patches grid, each patch
+  flat, rough or hilly by its own code and made from its own draws (row
+  by row, column by column), padded to `shape` with edge values."""
+  B = codes.shape[0]
+  tiles = [from_draws(codes[:, k], grid_u[:, k], scalar_u[:, k])
+           for k in range(patches * patches)]
+  arena = torch.cat([torch.cat(tiles[i * patches:(i + 1) * patches], 2)
+                     for i in range(patches)], 1)
+  rows = torch.clamp(torch.arange(shape[0], device=codes.device),
+                     max=arena.shape[1] - 1)
+  cols = torch.clamp(torch.arange(shape[1], device=codes.device),
+                     max=arena.shape[2] - 1)
+  return arena[:, rows][:, :, cols].reshape(B, shape[0], shape[1])
+
+
+def chasetag_arena(generator: torch.Generator, batch: int,
+                   shape: Tuple[int, int], patches: int = 2) -> torch.Tensor:
+  return arena_from_draws(*arena_draws(generator, batch, shape, patches),
+                          shape, patches)
+
+
 def sample_height(hfield: torch.Tensor, xy: torch.Tensor,
                   extent: Tuple[float, float],
                   base: Tuple[float, float] = (0.0, 0.0)) -> torch.Tensor:

@@ -99,6 +99,11 @@ class WalkEnv(MyoEnv):
   def _com_vel(self, data: Data) -> torch.Tensor:
     return data.qvel[:, 0:3]
 
+  def _root_yaw(self, data: Data) -> torch.Tensor:
+    q = data.qpos[:, 3:7]
+    return torch.atan2(2 * (q[:, 0] * q[:, 3] + q[:, 1] * q[:, 2]),
+                       1 - 2 * (q[:, 2] ** 2 + q[:, 3] ** 2))
+
   def _get_obs(self, data: Data, info: Dict) -> Dict[str, torch.Tensor]:
     dt = self._config["sim_dt"]
     rfoot = data.site_xpos[:, self._rfoot_site]
@@ -218,11 +223,6 @@ class TerrainWalkEnv(WalkEnv):
       hfield = self.terrain(generator, batch)
     return self._initial_state(self._make_data(qpos, qvel, hfield=hfield),
                                self._fresh_info(generator, batch))
-
-  def _root_yaw(self, data: Data) -> torch.Tensor:
-    q = data.qpos[:, 3:7]
-    return torch.atan2(2 * (q[:, 0] * q[:, 3] + q[:, 1] * q[:, 2]),
-                       1 - 2 * (q[:, 2] ** 2 + q[:, 3] ** 2))
 
   def _get_obs(self, data: Data, info: Dict) -> Dict[str, torch.Tensor]:
     obs = super()._get_obs(data, info)

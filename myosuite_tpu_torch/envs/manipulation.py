@@ -17,7 +17,7 @@ are redrawn for the whole batch at every control step and taken where an
 episode ends, with no host round trip.
 
 The site ids and joint addresses that the JAX envs look up with MuJoCo
-come from the model file's config (`registry.manip_config_from_npz`):
+come from the model file's config (`registry.task_config_from_npz`):
 "site_<name>", "qadr_<joint>" and "dadr_<joint>" for the names in each
 class's SITES and JOINTS. Other config keys: ctrl_dt, sim_dt,
 max_episode_steps, drop_th, goal_center, fixed_target, reward_weights, and

@@ -36,6 +36,11 @@ ARM_NPZ = os.path.join(ASSETS, "myoarm.npz")
 # the in-hand manipulation models, by object (envs/manipulation.py ENVS)
 MANIP_NPZ = {obj: os.path.join(ASSETS, f"myohand_{obj}.npz")
              for obj in ("hold", "die", "pen", "baoding", "key")}
+# the MyoChallenge models, by task (envs/challenge.py)
+CHALLENGE_NPZ = {task: os.path.join(ASSETS, f"{stem}.npz") for task, stem in (
+    ("chasetag", "myoleg_chasetag"), ("soccer", "myoleg_soccer"),
+    ("runtrack", "myoleg_osl"), ("relocate", "myoarm_relocate"),
+    ("bimanual", "myoarm_bimanual"), ("tabletennis", "myoarm_tabletennis"))}
 
 # order of the reward weights stored under "<prefix>reward_weights"
 REACH_REWARDS = ("reach", "bonus", "penalty")
@@ -260,11 +265,12 @@ def walk_config_from_npz(extra: Dict[str, np.ndarray],
   return cfg
 
 
-def manip_config_from_npz(extra: Dict[str, np.ndarray],
-                          p: str = "cfg_manip_") -> Dict[str, Any]:
-  """Manipulation env config from the "<p>*" arrays of a model file:
-  integers (site ids, joint addresses, max_episode_steps) as int, other
-  scalars as float, vectors as tuples, the reward names and weights as
+def task_config_from_npz(extra: Dict[str, np.ndarray],
+                         p: str = "cfg_manip_") -> Dict[str, Any]:
+  """A task config (the manipulation and challenge envs') from the "<p>*"
+  arrays of a model file: strings as str, integers (site and geom ids,
+  joint addresses, max_episode_steps) as int or a tuple of int, other
+  numbers as float or a tuple of float, the reward names and weights as
   the ordered dict `reward_weights`."""
   cfg: Dict[str, Any] = dict(norm_actions=True)
   for key, v in extra.items():
@@ -272,12 +278,12 @@ def manip_config_from_npz(extra: Dict[str, np.ndarray],
                                         p + "reward_weights"):
       continue
     k = key[len(p):]
-    if v.ndim:
-      cfg[k] = tuple(map(float, v))
+    if v.dtype.kind in "US":
+      cfg[k] = str(v)
     elif np.issubdtype(v.dtype, np.integer):
-      cfg[k] = int(v)
+      cfg[k] = tuple(map(int, v)) if v.ndim else int(v)
     else:
-      cfg[k] = float(v)
+      cfg[k] = tuple(map(float, v)) if v.ndim else float(v)
   cfg["reward_weights"] = dict(zip(map(str, extra[p + "reward_names"]),
                                    map(float, extra[p + "reward_weights"])))
   return cfg
@@ -352,7 +358,7 @@ def _sar(device, overrides, variant="8"):
   scene with the pen task's goal centre and reward weights."""
   from myosuite_tpu_torch.envs.sar import ReorientSAREnv
   model, extra = physics_io.load_model(MANIP_NPZ["pen"], device)
-  cfg = manip_config_from_npz(extra)
+  cfg = task_config_from_npz(extra)
   del cfg["goal_pitch_limit"]
   cfg.update(fixed_target=False, geom_variant=variant)
   return ReorientSAREnv(model, _deep_merge(cfg, overrides))
@@ -390,8 +396,26 @@ def _manip(obj, device, overrides, fixed=False):
   """The in-hand manipulation task of the model file of `obj`."""
   from myosuite_tpu_torch.envs import manipulation
   model, extra = physics_io.load_model(MANIP_NPZ[obj], device)
-  cfg = dict(manip_config_from_npz(extra), fixed_target=fixed)
+  cfg = dict(task_config_from_npz(extra), fixed_target=fixed)
   return manipulation.ENVS[obj](model, _deep_merge(cfg, overrides))
+
+
+def _challenge(task, device, overrides, role="chase"):
+  """The MyoChallenge task `task` on its model file; the leg tasks take
+  the walk config too, and ChaseTag the agent's role."""
+  from myosuite_tpu_torch.envs import challenge
+  model, extra = physics_io.load_model(CHALLENGE_NPZ[task], device)
+  cfg = task_config_from_npz(extra, "cfg_chal_")
+  if "cfg_walk_ctrl_dt" in extra:
+    cfg = {**walk_config_from_npz(extra), **cfg}
+  if task == "chasetag":
+    cfg["agent_role"] = role
+  cls = {"chasetag": challenge.ChaseTagEnv, "soccer": challenge.SoccerEnv,
+         "runtrack": challenge.RunTrackEnv,
+         "relocate": challenge.RelocateEnv,
+         "bimanual": challenge.BimanualEnv,
+         "tabletennis": challenge.TableTennisEnv}[task]
+  return cls(model, _deep_merge(cfg, overrides))
 
 
 def _register_pair(stem, factory, aliases, suite="myobase"):
@@ -459,3 +483,16 @@ register_with_variants("MtxHandTrackCyclic-v0",
                        functools.partial(_track, "hand"),
                        aliases=("myoDmHandTrack-v0",), suite="myodm")
 myodm.register_all(functools.partial(register, suite="myodm"))
+for _name, _task, _kw, _aliases in (
+    ("MtxChaseTag-v0", "chasetag", {}, ("myoChallengeChaseTagP1-v0",)),
+    ("MtxChaseTagEvade-v0", "chasetag", {"role": "evade"},
+     ("myoChallengeChaseTagP2-v0",)),
+    ("MtxSoccer-v0", "soccer", {}, ("myoChallengeSoccerP1-v0",)),
+    ("MtxRunTrack-v0", "runtrack", {},
+     ("myoChallengeRunTrackP1-v0", "myoChallengeOslRunFixed-v0")),
+    ("MtxRelocate-v0", "relocate", {}, ("myoChallengeRelocateP1-v0",)),
+    ("MtxBimanual-v0", "bimanual", {}, ("myoChallengeBimanual-v0",)),
+    ("MtxTableTennis-v0", "tabletennis", {},
+     ("myoChallengeTableTennisP1-v0",))):
+  register(_name, functools.partial(_challenge, _task, **_kw),
+           aliases=_aliases, suite="myochal")

@@ -15,7 +15,7 @@ act_reg, drop, bonus; done when the object leaves the goal by 0.075;
 solved when the axes align past 0.95 and the object is held. The geometry
 row and goal axis are redrawn at every episode boundary.
 
-Config keys (the pen scene's, `registry.manip_config_from_npz`):
+Config keys (the pen scene's, `registry.task_config_from_npz`):
 site_object_site, site_object_top, qadr_object_free, dadr_object_free,
 goal_center, geom_variant, ctrl_dt, sim_dt, max_episode_steps,
 reward_weights.

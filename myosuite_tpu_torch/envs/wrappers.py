@@ -30,12 +30,16 @@ def _pick(boundary: torch.Tensor, new: torch.Tensor,
 
 def _pick_info(boundary: torch.Tensor, new, old):
   """`_pick` over an info entry: a tensor, or a dict of them at any depth
-  (e.g. the fatigue state); anything else, or an entry the reset does not
-  make, is kept."""
+  (e.g. the fatigue state), or a dataclass of them (e.g. a scripted
+  opponent's state, through `_pick_fields`); anything else, or an entry
+  the reset does not make, is kept."""
   if isinstance(old, torch.Tensor) and isinstance(new, torch.Tensor):
     return _pick(boundary, new, old)
   if isinstance(old, dict) and isinstance(new, dict):
     return {k: _pick_info(boundary, new.get(k), v) for k, v in old.items()}
+  if (dataclasses.is_dataclass(old) and not isinstance(old, type)
+      and type(new) is type(old)):
+    return _pick_fields(boundary, new, old, getattr(old, "STATIC", ()))
   return old
 
 

@@ -208,7 +208,12 @@ EDGE_CASES = ((5, 9, 3, "some", 5, False), (5, 9, 3, "some", 37, False),
               (35, 40, 3, "some", 37, False), (35, 23, 0, "some", 37, True),
               (24, 168, 0, "some", 37, False), (29, 83, 0, "some", 37, False),
               (29, 151, 0, "some", 37, False),
-              (35, 147, 0, "some", 37, False))
+              (35, 147, 0, "some", 37, False),
+              # the MyoChallenge shapes: Soccer, TableTennis, Relocate and
+              # Bimanual (2 envs per block)
+              (26, 138, 0, "some", 37, False), (33, 39, 0, "some", 37, False),
+              (33, 235, 0, "some", 37, False),
+              (38, 336, 0, "some", 37, False))
 
 
 def random_batch(seed: int, nv: int, nefc: int, n_friction: int,

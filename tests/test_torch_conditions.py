@@ -516,10 +516,11 @@ def test_autoreset_resets_nested_info(monkeypatch):
 
 
 def test_registry_matches_jax():
-  """The port's 301 ids are the JAX registry's but for its 7 MyoChallenge
-  (suite "myochal") ids: the ported bases, the Fati / Sarc variants of all
-  32 variant bases (no variant base is missing), the SAR and MyoDM ids,
-  each with JAX's aliases and suite."""
+  """The port's 308 ids are the JAX registry's, all of them: the ported
+  bases, the Fati / Sarc variants of all 32 variant bases (no variant base
+  is missing), the SAR and MyoDM ids and the 7 MyoChallenge (suite
+  "myochal") ids, which have no variants, each with JAX's aliases and
+  suite."""
   from myosuite_tpu_torch.envs import myodm
   ours = set(registry.registered_envs())
   new_bases = ["MtxElbowPoseExoRandom-v0", "MtxElbowPoseExoFixed-v0",
@@ -529,18 +530,18 @@ def test_registry_matches_jax():
   dm = ({f"MtxHand{s}-v0" for s, _, _ in myodm.TRACK_SPECS}
         | {f"MtxHand{o.title()}{k}-v0" for o in myodm.GRAB_OBJECTS
            for k in ("Fixed", "Random")})
+  chal = {"MtxChaseTag-v0", "MtxChaseTagEvade-v0", "MtxSoccer-v0",
+          "MtxRunTrack-v0", "MtxRelocate-v0", "MtxBimanual-v0",
+          "MtxTableTennis-v0"}
   bases = VARIANT_BASES + new_bases
-  want = (set(bases) | set(OTHER_BASES) | sar | dm
+  want = (set(bases) | set(OTHER_BASES) | sar | dm | chal
           | {f"Mtx{tag}{b[3:]}" for b in bases for tag in ("Fati", "Sarc")})
-  assert ours == want and len(ours) == 301 and len(dm) == 190
+  assert ours == want and len(ours) == 308 and len(dm) == 190
   assert _port_ids() <= ours
   theirs = set(jax_registry.registered_envs())
-  assert ours <= theirs and len(theirs) == 308
-  missing = theirs - ours
-  assert len(missing) == 7
-  assert {jax_registry.suite_of(n) for n in missing} == {"myochal"}
+  assert ours == theirs and len(theirs) == 308
   assert {n for n in theirs if jax_registry.suite_of(n) == "myochal"} == \
-      missing
+      chal
   for tag in ("Fati", "Sarc"):
     variants = {n for n in theirs if n.startswith("Mtx" + tag)}
     assert variants <= ours
@@ -549,8 +550,8 @@ def test_registry_matches_jax():
     assert registry.suite_of(name) == jax_registry.suite_of(name), name
   assert registry.suite_of("myoArmReachRandom-v0") == "myoedits"
   assert registry.suite_of("MyoHandAppleLift-v0") == "myodm"
-  want = {a: n for a, n in jax_registry._ALIASES.items() if n in ours}
-  assert registry._ALIASES == want
+  assert registry.suite_of("myoChallengeOslRunFixed-v0") == "myochal"
+  assert registry._ALIASES == jax_registry._ALIASES
 
 
 @pytest.mark.parametrize("name", ["myotorso.npz", "myoarm_reach.npz",

@@ -184,6 +184,22 @@ def test_kernel_bit_equal_at_tracking_inputs(cuda, name):
     assert torch.equal(o, r), (n, float((o - r).abs().max()))
 
 
+# the envs of chip_smoke.py's phase 11: the leg's (20, 54) with an opponent
+# and with the OSL, Soccer (26, 138), Relocate's per-env object (33, 235),
+# Bimanual (38, 336) and TableTennis (33, 39)
+CHALLENGE_IDS = ("MtxChaseTag-v0", "MtxSoccer-v0", "MtxRunTrack-v0",
+                 "MtxRelocate-v0", "MtxBimanual-v0", "MtxTableTennis-v0")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CHALLENGE_IDS)
+def test_kernel_bit_equal_at_challenge_inputs(cuda, name):
+  """Each MyoChallenge env's own solver inputs (Relocate's per-env
+  model's) after 3 control steps at batch 256: outputs equal to the plain
+  version's."""
+  test_kernel_bit_equal_at_tracking_inputs(cuda, name)
+
+
 @pytest.mark.cuda
 def test_kernel_takes_every_myodm_scene(cuda):
   """Each committed MyoDM scene's recorded (nv, nefc) fits a block's

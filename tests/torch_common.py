@@ -298,6 +298,119 @@ def _grab_objects():
   return tuple(GRAB_OBJECTS)
 
 
+# the JAX package's MyoChallenge env whose model and task config each
+# challenge model file holds
+CHALLENGE_IDS = {"myoleg_chasetag.npz": "MtxChaseTag-v0",
+                 "myoleg_soccer.npz": "MtxSoccer-v0",
+                 "myoleg_osl.npz": "MtxRunTrack-v0",
+                 "myoarm_relocate.npz": "MtxRelocate-v0",
+                 "myoarm_bimanual.npz": "MtxBimanual-v0",
+                 "myoarm_tabletennis.npz": "MtxTableTennis-v0"}
+# config entries that are not stored (the model itself, the walk config's
+# own keys, and the role the port's registry sets per id)
+_CHAL_SKIP = ("model_xml", "reward_weights", "norm_actions", "agent_role")
+
+
+def _mj_id(mj, obj, name):
+  i = mujoco.mj_name2id(mj, obj, name)
+  assert i >= 0, name
+  return i
+
+
+def _challenge_ids(env):
+  """The ids a JAX challenge env looks up with MuJoCo at __init__ (site,
+  body, geom ids, joint qpos / dof addresses, the geom groups of its
+  contact masks), by name."""
+  from myosuite_tpu.envs import challenge as jc
+  mj = env.mj_model
+  geom = lambda n: _mj_id(mj, mujoco.mjtObj.mjOBJ_GEOM, n)
+  ids = {}
+  if isinstance(env, jc._LegChallengeEnv):
+    ids["grf_r_geoms"] = [geom(n) for n in ("r_heel_geom", "r_foot_geom",
+                                            "r_toes_geom")]
+    ids["grf_l_geoms"] = [geom(n) for n in ("l_heel_geom", "l_foot_geom",
+                                            "l_toes_geom")]
+  if isinstance(env, jc.SoccerEnv):
+    ids.update(ball_qadr=env._ball_qadr, ball_dadr=env._ball_dadr)
+  if isinstance(env, jc.RunTrackEnv):
+    ids.update(knee_qadr=env._knee_q, knee_dadr=env._knee_d,
+               ankle_qadr=env._ankle_q, ankle_dadr=env._ankle_d)
+  if isinstance(env, jc.RelocateEnv):
+    ids.update(obj_site=env._obj_site, obj_geom=env._obj_geom,
+               obj_body=env._obj_body, obj_qadr=env._obj_qadr,
+               obj_dadr=env._obj_dadr)
+  if isinstance(env, jc.BimanualEnv):
+    obj = geom("object_geom")
+    names = [mujoco.mj_id2name(mj, mujoco.mjtObj.mjOBJ_GEOM, g) or ""
+             for g in range(mj.ngeom)]
+    pros = [g for g, n in enumerate(names) if n.startswith("pros_")]
+    start, goal = [geom("start_pillar")], [geom("goal_pillar")]
+    other = [g for g in range(mj.ngeom)
+             if g != obj and g not in pros + start + goal]
+    ids.update(
+        rpalm_site=env._rpalm_site, obj_site=env._obj_site,
+        fin_sites=list(env._fin_sites), palm_body=env._palm_body,
+        obj_qadr=env._obj_qadr, obj_dadr=env._obj_dadr,
+        pros_qadr=env._pros_qadr, pros_dadr=env._pros_dadr, obj_geom=obj,
+        touch_myo=[g for g in other if int(mj.geom_bodyid[g]) != 0],
+        touch_pros=pros, touch_start=start, touch_goal=goal,
+        touch_env=[g for g in other if int(mj.geom_bodyid[g]) == 0])
+  if isinstance(env, jc.TableTennisEnv):
+    ids.update(paddle_site=env._paddle_site, ball_site=env._ball_site,
+               palm_body=env._palm_body, thorax_body=env._thorax_body,
+               ball_qadr=env._ball_qadr, ball_dadr=env._ball_dadr,
+               paddle_geom=geom("paddle_geom"), table_geom=geom("table_geom"),
+               ball_geom=geom("ball_geom"))
+  return ids
+
+
+def challenge_cfg(env, p="cfg_chal_"):
+  """A JAX challenge env's task config as the "<p>*" arrays of a model
+  file: every scalar, vector and string entry, the reward names and
+  weights, the ids of `_challenge_ids` (int32) and the model's total body
+  mass (float64, the body weight's and the OSL thresholds' source)."""
+  cfg = env.config
+  out = {}
+  for k in sorted(cfg.keys()):
+    if k in _CHAL_SKIP:
+      continue
+    v = cfg[k]
+    if isinstance(v, str):
+      out[p + k] = np.asarray(v)
+    else:
+      out[p + k] = np.asarray(v, dtype=np.int32 if k == "max_episode_steps"
+                              else np.float64)
+  for k, v in _challenge_ids(env).items():
+    out[p + k] = np.asarray(v, dtype=np.int32)
+  out[p + "body_mass"] = np.asarray(float(np.sum(env.mj_model.body_mass)),
+                                    dtype=np.float64)
+  names = sorted(cfg.reward_weights.keys())
+  out[p + "reward_names"] = np.asarray(names)
+  out[p + "reward_weights"] = np.asarray(
+      [cfg.reward_weights[k] for k in names], dtype=np.float64)
+  return out
+
+
+def challenge_export(name):
+  """Field dict and task config (with the walk config for the leg envs,
+  and the joint and actuator names) of the JAX package's challenge env of
+  the model file `name` (myosuite_tpu_torch/assets/<name>)."""
+  import myosuite_tpu
+  from myosuite_tpu.envs import challenge as jc
+  from myosuite_tpu_torch.physics import io as torch_io
+
+  env = myosuite_tpu.make(CHALLENGE_IDS[name])
+  mj = env.mj_model
+  name_of = lambda obj, i: mujoco.mj_id2name(mj, obj, i) or ""
+  extra = dict(challenge_cfg(env), jnt_names=np.asarray(
+      [name_of(mujoco.mjtObj.mjOBJ_JOINT, j) for j in range(mj.njnt)]),
+      actuator_names=np.asarray([name_of(mujoco.mjtObj.mjOBJ_ACTUATOR, i)
+                                 for i in range(mj.nu)]))
+  if isinstance(env, jc._LegChallengeEnv):
+    extra.update(_walk_cfg(env))
+  return torch_io.model_fields(env.mj_model), extra
+
+
 # committed model file -> the function that exports it afresh
 EXPORTS = {"myohand_reach.npz": hand_reach_export,
            "myoelbow.npz": elbow_export, "myofinger.npz": finger_export,
@@ -317,7 +430,10 @@ EXPORTS = {"myohand_reach.npz": hand_reach_export,
                functools.partial(_pose_cfg, named=True)),
            # the MyoDM scenes, one file per GRAB object
            **{f"myodm/{obj}.npz": functools.partial(myodm_export, obj)
-              for obj in _grab_objects()}}
+              for obj in _grab_objects()},
+           # the MyoChallenge scenes
+           **{name: functools.partial(challenge_export, name)
+              for name in CHALLENGE_IDS}}
 
 
 def write_export(name):
