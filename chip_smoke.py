@@ -18,7 +18,7 @@ occupancy, golden replays) and one timed PPO training step on
 MtxHandObjHoldRandom-v0. Phase 9 drives the muscle conditions and the
 rest of myobase at batch 4096: the torso (nv 18), the arm reach (nv 7) and
 the arm pose (nv 27), an ASL posture, the reafferented hand, and the hand
-under sarcopenia and fatigue (8 timed control steps each, the kernel
+under sarcopenia and fatigue (4 timed control steps each, the kernel
 against its plain version at each env's own inputs), the sarcopenia
 forces, the plain and the Fati hand in turns, the fatigue state's
 conservation, growth and auto-reset, one timed PPO training step on
@@ -36,13 +36,22 @@ MtxHandReorient100-v0, then phase 10's seconds by part. Phase 11 drives
 the seven MyoChallenge ids at batch 4096: ChaseTag (chase and evade) with
 its scripted opponent on a patch arena, Soccer with its goalkeeper,
 RunTrack with the OSL controller, Relocate (a per-env object), Bimanual
-and TableTennis (8 timed control steps each, the kernel against its plain
+and TableTennis (4 timed control steps each, the kernel against its plain
 version at each env's own inputs), the OSL's phases, ChaseTag and Soccer
 through the auto-reset (a done env's opponent or keeper fresh), the
 challenge golden replays and one timed PPO training step on
-MtxRunTrack-v0, whose policy commands nu - 2 actuators. Prints one JSON
-line of kernel numbers (with a `shapes` list per env and (nv, nefc)) and,
-last, {"ok": true, "device": {...}}. Exits non-zero, with no result line,
+MtxRunTrack-v0, whose policy commands nu - 2 actuators. Phase 12 drives
+the other trainers and the agents: SAC and NPG at their default configs
+on MtxHandReachRandom-v0 (SAC's collection epochs up to learning_starts,
+then 2 timed epochs with updates; NPG a warm-up and a timed iteration),
+the five shipped pretrained policies restored from their .pt files in
+deterministic evals at batch 4096 against the JAX package's own eval
+(assets/pretrained_golden.npz), the closed-loop goldens of the elbow and
+the stand, the kernel against its plain version at the trained stand
+policy's states, and the reflex controller's 150-step rollout of the walk
+(its stimulations against the CPU controller's). Prints one JSON line of
+kernel numbers (with a `shapes` list per env and (nv, nefc)) and, last,
+{"ok": true, "device": {...}}. Exits non-zero, with no result line,
 when any phase fails or when there is no CUDA card.
 
   python3 chip_smoke.py --parent DIR
@@ -80,7 +89,7 @@ MANIP = (("hold", "MtxHandObjHoldRandom-v0", "MtxHandObjHoldFixed-v0", None),
          ("baoding", "MtxHandBaoding-v0", "MtxHandBaoding-v0",
           {"fixed_target": True}),
          ("key", "MtxHandKeyTurnRandom-v0", "MtxHandKeyTurnFixed-v0", None))
-MYOBASE_STEPS = 8        # control steps of each env of phase 9
+MYOBASE_STEPS = 4        # control steps of each env of phase 9
 TURN_PAIRS = 3           # phase 9: pairs of plain / Fati hand turns
 TURN_STEPS = 4           # control steps a turn
 # phase 9: the envs at batch 4096 (the first three are the new models)
@@ -120,7 +129,7 @@ TRACKING = (("exo", "MtxElbowPoseExoRandom-v0"),
 # supplied before each step are stored as "<tag>_info_<key>"
 TRACKING_GOLDEN = {tag: (name, {"reset_type": "none"} if tag == "exo"
                          else None) for tag, name in TRACKING}
-CHAL_STEPS = 8           # control steps of each env of phase 11
+CHAL_STEPS = 4           # control steps of each env of phase 11
 RESET_STEPS = 2          # phase 11: control steps through the auto-reset
 # phase 11: the MyoChallenge envs at batch 4096 (tag, id); the tags are
 # tests/test_torch_challenge.py::IDS's, which wrote the golden file
@@ -245,15 +254,27 @@ def profile_call(fn, sync=torch.cuda.synchronize):
     fn()
     sync()
     wall = (time.perf_counter() - t0) * 1e3
-  kernels = [e for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-  busy = sum(e.self_device_time_total for e in kernels) / 1e3
-  launches = sum(e.count for e in kernels)
-  top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+  busy, launches, top = device_kernels(prof)
   if torch.cuda.is_available() and not launches:
     raise AssertionError("the profiler saw no kernel on the card")
-  return busy, wall, launches, [(e.key[:60], e.self_device_time_total / 1e3,
-                                 e.count) for e in top]
+  return busy, wall, launches, top
+
+
+def device_kernels(prof):
+  """(device-busy ms, kernel launches, the five costliest kernels as
+  (name, ms, calls)) of a finished profile, summed over its raw events:
+  `prof.key_averages()` gives the same numbers but first builds a Python
+  event per launch, seconds for the 10,000-50,000 launches of a control
+  step."""
+  by_name = {}
+  for e in prof.profiler.kineto_results.events():
+    if e.device_type() == torch.autograd.DeviceType.CUDA:
+      ns, n = by_name.get(e.name(), (0, 0))
+      by_name[e.name()] = (ns + e.duration_ns(), n + 1)
+  busy = sum(ns for ns, _ in by_name.values()) / 1e6
+  launches = sum(n for _, n in by_name.values())
+  top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+  return busy, launches, [(k[:60], ns / 1e6, n) for k, (ns, n) in top]
 
 
 def step_profile(env, state, action, step_ms):
@@ -1415,6 +1436,307 @@ def challenge_phase(dev, build, phase_lib):
   return dict(shapes=shapes, ppo=trained["steps"])
 
 
+SAC_EPOCHS = 2           # phase 12: timed SAC epochs past learning_starts
+NPG_ITERS = 1            # phase 12: timed NPG iterations after a warm-up
+EVAL_HORIZON = 100       # phase 12: control steps of each pretrained eval
+REFLEX_STEPS = 150       # phase 12: control steps of the reflex rollout
+KERNEL_AT_STEP = 50      # phase 12: the stand eval's step whose solve is
+#                          taken apart (kernel against its plain version)
+
+
+def _timed_method(obj, name, marks, sync):
+  """Replace obj.<name> by a version that records its host seconds
+  (between two synchronizations) under marks[name]."""
+  fn = getattr(obj, name)
+
+  def timed(*args, **kw):
+    sync()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    sync()
+    marks[name] = marks.get(name, 0.0) + time.perf_counter() - t0
+    return out
+  setattr(obj, name, timed)
+
+
+def sac_check(dev):
+  """SAC at default_config() on the main path's env: collection epochs
+  until learning_starts, then SAC_EPOCHS timed epochs with updates, each
+  40 launches; finite losses, q_loss > 0, the buffer past
+  learning_starts."""
+  import myosuite_tpu_torch
+  from myosuite_tpu_torch.physics import newton_kernel as nk
+  from myosuite_tpu_torch.train import sac as sac_mod
+  cfg = sac_mod.default_config()
+  env = myosuite_tpu_torch.make("MtxHandReachRandom-v0", device=dev)
+  trainer = sac_mod.SAC(env, cfg)
+  ts = trainer.init(torch.Generator(device=dev).manual_seed(cfg.seed))
+  block = cfg.unroll_length * cfg.num_envs
+  want = cfg.unroll_length * env._n_substeps
+  t0 = time.perf_counter()
+  n_collect = 0
+  while ts.env_steps + block < cfg.learning_starts:
+    nk.launches = 0
+    ts, m = trainer.training_step(ts)
+    n_collect += 1
+    if nk.launches != want:
+      raise AssertionError(f"SAC epoch launched the kernel {nk.launches} "
+                           f"times, want {want}")
+  torch.cuda.synchronize()
+  print(f"  SAC: {n_collect} collection epochs ({ts.env_steps} env steps) "
+        f"in {time.perf_counter() - t0:.1f} s; replay {cfg.replay_capacity} "
+        f"rows, {ts.buffer.nbytes / 1e6:.1f} MB on the card")
+  marks = {}
+  _timed_method(trainer, "_collect", marks, torch.cuda.synchronize)
+  out = []
+  for i in range(SAC_EPOCHS):
+    marks.clear()
+    nk.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts, metrics = trainer.training_step(ts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = {k: float(v) for k, v in metrics.items()}
+    row = dict(collect_ms=marks["_collect"] * 1e3,
+               update_ms=(wall - marks["_collect"]) * 1e3,
+               env_steps_per_s=block / wall, launches=nk.launches, **m)
+    out.append(row)
+    print(f"  SAC epoch {i}: collect {row['collect_ms']:.1f} ms, "
+          f"{cfg.grad_updates_per_epoch} updates {row['update_ms']:.1f} ms "
+          f"= {row['env_steps_per_s']:.0f} env-steps/s; Newton launches "
+          f"{nk.launches}; q_loss {m['q_loss']:.4g} pi_loss "
+          f"{m['pi_loss']:.4g} alpha {m['alpha']:.4g} entropy "
+          f"{m['entropy']:.4g} buffer_size {m['buffer_size']:.0f}")
+    if nk.launches != want:
+      raise AssertionError(f"SAC epoch launched the kernel {nk.launches} "
+                           f"times, want {want}")
+    if not all(np.isfinite(v) for v in m.values()):
+      raise AssertionError(f"non-finite SAC metrics {m}")
+    if not (m["q_loss"] > 0 and m["buffer_size"] > cfg.learning_starts):
+      raise AssertionError(f"SAC did not update: {m}")
+  return out
+
+
+def npg_check(dev):
+  """NPG at default_config() on the main path's env: a warm-up and
+  NPG_ITERS timed iterations, each 500 launches, split into rollout,
+  natural step and value fit; 0 < kl_after < 10 delta."""
+  import myosuite_tpu_torch
+  from myosuite_tpu_torch.physics import newton_kernel as nk
+  from myosuite_tpu_torch.train import npg as npg_mod
+  cfg = npg_mod.default_config()
+  env = myosuite_tpu_torch.make("MtxHandReachRandom-v0", device=dev)
+  trainer = npg_mod.NPG(env, cfg)
+  ts = trainer.init(torch.Generator(device=dev).manual_seed(cfg.seed))
+  want = cfg.unroll_length * env._n_substeps
+  marks = {}
+  for name in ("_rollout", "_natural_step", "_fit_value"):
+    _timed_method(trainer, name, marks, torch.cuda.synchronize)
+  out = []
+  for i in range(1 + NPG_ITERS):
+    marks.clear()
+    nk.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts, metrics = trainer.training_step(ts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = {k: float(v) for k, v in metrics.items()}
+    row = dict(rollout_ms=marks["_rollout"] * 1e3,
+               natural_step_ms=marks["_natural_step"] * 1e3,
+               value_fit_ms=marks["_fit_value"] * 1e3, wall_ms=wall * 1e3,
+               env_steps_per_s=cfg.unroll_length * cfg.num_envs / wall,
+               launches=nk.launches, **m)
+    print(f"  NPG iteration {i}{' (warm-up)' if i == 0 else ''}: rollout "
+          f"{row['rollout_ms']:.1f} ms, natural step "
+          f"{row['natural_step_ms']:.1f} ms, value fit "
+          f"{row['value_fit_ms']:.1f} ms, {row['wall_ms']:.1f} ms in all = "
+          f"{row['env_steps_per_s']:.0f} env-steps/s; Newton launches "
+          f"{nk.launches}; kl_after {m['kl_after']:.4g} surrogate "
+          f"{m['surrogate']:.4g} value_loss {m['value_loss']:.4g}")
+    if nk.launches != want:
+      raise AssertionError(f"NPG iteration launched the kernel "
+                           f"{nk.launches} times, want {want}")
+    if not all(np.isfinite(v) for v in m.values()):
+      raise AssertionError(f"non-finite NPG metrics {m}")
+    if not 0 < m["kl_after"] < 10 * cfg.normalized_step_size:
+      raise AssertionError(f"NPG kl_after {m['kl_after']} outside (0, "
+                           f"{10 * cfg.normalized_step_size})")
+    if i:
+      out.append(row)
+  return out
+
+
+def closed_loop_golden(label, tag, golden, dev, env_id):
+  """The pretrained policy from the JAX reset stored in `golden`, on the
+  port's own observations, each field within its stored tolerance."""
+  from myosuite_tpu_torch.agents import pretrained
+  ours = pretrained.closed_loop(golden, tag, env_id, dev)
+  gaps = {k: float(np.abs(v - golden[f"{tag}_{k}"]).max())
+          for k, v in ours.items()}
+  tol = {k: float(golden[f"atol_{tag}_{k}"]) for k in ours}
+  print(f"{label}: " + ", ".join(f"{k} {v:.3e} (tol {tol[k]:.3e})"
+                                 for k, v in gaps.items()))
+  for k, v in gaps.items():
+    if not v <= tol[k]:
+      raise AssertionError(f"{label}: {k} off by {v}")
+
+
+def pretrained_check(dev, golden, watch):
+  """The five shipped policies restored from their .pt files, each in a
+  deterministic eval at batch BATCH for EVAL_HORIZON control steps from
+  the port's own resets: success and mean return beside the JAX
+  package's eval of the same policy (golden); fails when a success rate
+  leaves the JAX one by more than 3 binomial standard errors of the JAX
+  estimate plus 5 points. At the stand policy's states (step
+  KERNEL_AT_STEP) the kernel against its plain version. Returns the
+  stand kernel's numbers."""
+  from myosuite_tpu_torch.agents import pretrained
+  from myosuite_tpu_torch.physics import forward
+  from myosuite_tpu_torch.physics import newton_kernel as nk
+  stand = None
+  for env_id in pretrained.ENV_IDS:
+    tag = {"MtxElbowPoseRandom-v0": "elbow",
+           "MtxFingerPoseRandom-v0": "finger",
+           "MtxHandReachRandom-v0": "hand", "MtxLegStand-v0": "stand",
+           "MtxLegWalk-v0": "walk"}[env_id]
+    with watch.part(f"{tag} eval"):
+      trainer, ts = pretrained.load(env_id, device=dev)
+      env = trainer.env._env
+      gen = torch.Generator(dev).manual_seed(0)
+      seen = {}
+
+      def grab(i, st, env=env):
+        # the solver's inputs at the trained policy's states
+        if tag == "stand" and i == KERNEL_AT_STEP - 1:
+          seen["inputs"] = forward.solve_inputs(env.model, st.data)
+      nk.launches = 0
+      t0 = time.perf_counter()
+      out = pretrained.evaluate(trainer, ts, gen, BATCH, EVAL_HORIZON,
+                                on_step=grab)
+      torch.cuda.synchronize()
+      wall = time.perf_counter() - t0
+      launches = nk.launches
+    want = EVAL_HORIZON * env._n_substeps
+    n = golden[f"{tag}_returns"].shape[0]
+    p_jax = float(golden[f"{tag}_success"]) / 100.0
+    bound = 100.0 * (3 * np.sqrt(p_jax * (1 - p_jax) / n) + 0.05)
+    succ = out["success"]
+    ret = float(out["returns"].mean())
+    print(f"  {env_id}: success {succ:.2f}% over {BATCH} episodes of "
+          f"{EVAL_HORIZON} steps (JAX package {100 * p_jax:.2f}% over {n}; "
+          f"bound +-{bound:.2f}), mean return {ret:.3f} (JAX "
+          f"{float(golden[f'{tag}_returns'].mean()):.3f}); "
+          f"{wall / EVAL_HORIZON * 1e3:.1f} ms per control step; Newton "
+          f"launches {launches}")
+    if launches != want:
+      raise AssertionError(f"{env_id} eval launched the kernel {launches} "
+                           f"times, want {want}")
+    if not (np.isfinite(ret) and abs(succ - 100.0 * p_jax) <= bound):
+      raise AssertionError(f"{env_id}: success {succ} against the JAX "
+                           f"package's {100 * p_jax} (bound {bound})")
+    if tag == "stand":
+      with watch.part("stand kernel"):
+        args, kw = seen["inputs"]
+        stand = kernel_numbers(f"leg under the trained stand policy, step "
+                               f"{KERNEL_AT_STEP}, batch {BATCH}", args, kw)
+        stand["launches"] = launches
+        bit = all(torch.equal(a, b) for a, b in zip(
+            stand["ours"], nk.newton_solve_reference(*args, **kw)))
+        print(f"  stand policy's inputs: kernel bit-equal to its plain "
+              f"version {bit}; {stand['ms']:.4f} ms per launch (phase 7 "
+              f"times the leg under uniform random actions)")
+        if not bit:
+          raise AssertionError("kernel not bit-equal at the stand policy's "
+                               "inputs")
+  return stand
+
+
+def reflex_check(dev):
+  """The reflex controller with the shipped gains on MtxLegWalk-v0:
+  REFLEX_STEPS control steps of a batch of BATCH through step_ctrl, every
+  stimulation finite and in [0, 1]; at the last state, the card's
+  stimulations against the port's CPU controller within 1e-5; upright
+  time and distance beside the gains file's."""
+  import types
+  import myosuite_tpu_torch
+  from myosuite_tpu_torch.agents import pretrained, reflex
+  from myosuite_tpu_torch.physics import newton_kernel as nk
+  gait = os.path.join(pretrained.ROOT, "reflex_gait.json")
+  params = reflex.params_from_json(gait)
+  env = myosuite_tpu_torch.make("MtxLegWalk-v0", device=dev)
+  ctl = reflex.ReflexController(env, params)
+  nk.launches = 0
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  state, out = ctl.rollout(torch.Generator(dev).manual_seed(0),
+                           REFLEX_STEPS, batch=BATCH)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  stim = out["stim"]
+  ok = bool(torch.isfinite(stim).all()) and bool(
+      ((stim >= 0) & (stim <= 1)).all())
+  # upright time and distance, as the tuner measures them
+  alive = torch.cumprod((out["height"] > env.config["min_height"]).float(),
+                        0)
+  upright = float(alive.sum(0).mean()) * env.dt
+  dist = float(((alive * out["x"]).amax(0) - out["x0"]).mean())
+  with open(gait) as f:
+    rec = json.load(f)
+  cpu_env = myosuite_tpu_torch.make("MtxLegWalk-v0", device="cpu")
+  cpu_ctl = reflex.ReflexController(cpu_env, params)
+  rows = {k: getattr(state.data, k).cpu() for k in (
+      "qpos", "qvel", "actuator_force", "actuator_length", "contact_force",
+      "time")}
+  gap = float((ctl(state.data).cpu()
+               - cpu_ctl(types.SimpleNamespace(**rows))).abs().max())
+  print(f"  reflex: {REFLEX_STEPS} control steps at batch {BATCH} in "
+        f"{wall:.1f} s ({wall / REFLEX_STEPS * 1e3:.1f} ms per control "
+        f"step), Newton launches {nk.launches}; stimulations finite and in "
+        f"[0, 1] {ok}; card against the CPU controller at the last state "
+        f"{gap:.3e} (tol 1e-5); upright {upright:.2f} s and distance "
+        f"{dist:.3f} m over {REFLEX_STEPS * env.dt:.1f} s (the gains file: "
+        f"{rec['eval_upright_s'][0]:.2f} s and "
+        f"{rec['eval_distance_m'][0]:.3f} m over {rec['eval_horizon_s']} s, "
+        f"not on this card)")
+  if nk.launches != REFLEX_STEPS * env._n_substeps:
+    raise AssertionError(f"reflex rollout launched the kernel "
+                         f"{nk.launches} times")
+  if not ok or not gap <= 1e-5:
+    raise AssertionError(f"reflex stimulations: in range {ok}, card "
+                         f"against CPU {gap}")
+  return dict(upright_s=upright, distance_m=dist, gap=gap)
+
+
+def agents_phase(dev):
+  """Phase 12: SAC and NPG at their default configs on the main path's
+  env, the five pretrained policies against the JAX package's eval (and
+  the closed-loop goldens of the elbow and the stand), the reflex
+  controller, and the kernel at a trained policy's states."""
+  from myosuite_tpu_torch.envs.registry import ASSETS
+  watch = Stopwatch()
+  print("phase 12 agents: SAC and NPG at default_config() on "
+        "MtxHandReachRandom-v0")
+  with watch.part("SAC"):
+    sac = sac_check(dev)
+  with watch.part("NPG"):
+    npg = npg_check(dev)
+  with np.load(f"{ASSETS}/pretrained_golden.npz") as z:
+    golden = {k: z[k] for k in z.files}
+  print(f"  pretrained policies: deterministic evals at batch {BATCH}")
+  stand = pretrained_check(dev, golden, watch)
+  with watch.part("closed-loop goldens"):
+    closed_loop_golden("  closed-loop golden, elbow", "elbow", golden, dev,
+                       "MtxElbowPoseRandom-v0")
+    closed_loop_golden("  closed-loop golden, stand", "stand", golden, dev,
+                       "MtxLegStand-v0")
+  with watch.part("reflex"):
+    refl = reflex_check(dev)
+  watch.report("phase 12")
+  return dict(sac=sac, npg=npg, stand=stand, reflex=refl)
+
+
 def main():
   parser = argparse.ArgumentParser()
   parser.add_argument("--parent", help="checkout whose Newton kernel to "
@@ -1570,11 +1892,16 @@ def main():
   chal = challenge_phase(dev, build, phase_lib)
 
   mark(11)
+  # 12. trainers and agents: SAC, NPG, the pretrained policies, reflex
+  agents = agents_phase(dev)
+  stand = agents["stand"]
+
+  mark(12)
   print("phase ends (s since the start): " + ", ".join(
       f"{n} {t:.0f}" for n, t in ends))
   # the card again, on one of the last lines (the head of a long output
   # may be cut off where it is read)
-  print(f"phases 1-11 in {time.perf_counter() - t_start:.0f} s")
+  print(f"phases 1-12 in {time.perf_counter() - t_start:.0f} s")
   print(f"nvidia-smi: {smi}")
   print(json.dumps({"kernels": [{
       "name": "newton_solver", "route": "cuda",
@@ -1600,7 +1927,12 @@ def main():
                             "max_abs_err", "bound_ms", "plain_ms")}
          for s in manip["shapes"]
          + [s for s in myobase["shapes"] if s["tag"] in NEW_MODELS]
-         + tracking["shapes"] + chal["shapes"]]}]}))
+         + tracking["shapes"] + chal["shapes"]]
+      + [dict(nv=leg["nv"], nefc=leg["nefc"],
+              env="MtxLegStand-v0 under its trained policy",
+              ms=stand["ms"], launches=stand["launches"],
+              max_abs_err=stand["max_abs"], bound_ms=stand["bound_ms"],
+              plain_ms=stand["plain_ms"])]}]}))
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

@@ -12,3 +12,18 @@ points run on CUDA unless the caller names another device:
 __version__ = "0.1.0"
 
 from myosuite_tpu_torch.envs import make, registered_envs
+
+
+def __getattr__(name):
+  """The suite id lists of the JAX package (myosuite_myobase_suite,
+  myosuite_myochal_suite, myosuite_myodm_suite, myosuite_myoedit_suite),
+  from the registry's suite tags."""
+  tags = {"myosuite_myobase_suite": "myobase",
+          "myosuite_myochal_suite": "myochal",
+          "myosuite_myodm_suite": "myodm",
+          "myosuite_myoedit_suite": "myoedits"}
+  if name in tags:
+    from myosuite_tpu_torch.envs import registry
+    return sorted(i for i in registered_envs()
+                  if registry.suite_of(i) == tags[name])
+  raise AttributeError(name)

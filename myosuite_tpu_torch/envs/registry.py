@@ -265,6 +265,16 @@ def walk_config_from_npz(extra: Dict[str, np.ndarray],
   return cfg
 
 
+def reflex_tables_from_npz(extra: Dict[str, np.ndarray],
+                           p: str = "cfg_reflex_") -> Dict[str, Any]:
+  """The reflex controller's tables (`agents.reflex`) from the "<p>*"
+  arrays of a leg model file, or None if it has none."""
+  if p + "masks" not in extra:
+    return None
+  return {k: extra[p + k] for k in ("group_names", "masks", "grf",
+                                    "hip_qadr", "weight")}
+
+
 def task_config_from_npz(extra: Dict[str, np.ndarray],
                          p: str = "cfg_manip_") -> Dict[str, Any]:
   """A task config (the manipulation and challenge envs') from the "<p>*"
@@ -383,6 +393,9 @@ def _leg(device, overrides, kind="walk"):
   model, extra = physics_io.load_model(
       LEG_TERRAIN_NPZ if terrain else LEG_NPZ, device)
   cfg = walk_config_from_npz(extra)
+  reflex = reflex_tables_from_npz(extra)
+  if reflex is not None:
+    cfg["reflex"] = reflex
   if kind == "stand":
     return locomotion.StandEnv(
         model, _deep_merge(_deep_merge(cfg, STAND_OVERRIDES), overrides))

@@ -64,6 +64,28 @@ class FallbackCheckpoint(Callback):
                     learner_only=self._learner_only)
 
 
+def deterministic_rollout(env, policy_fn, ts, generator: torch.Generator,
+                          batch: int, horizon: int, on_step=None):
+  """`horizon` control steps of `batch` fresh episodes of the plain `env`
+  under `policy_fn(ts, obs)`: (returns (B,), solved flags (B, horizon)).
+  Steps after an episode's first done count neither reward nor solved
+  steps. `on_step(i, state)` sees the state after each step."""
+  with torch.no_grad():
+    st = env.reset(generator, batch)
+    alive = torch.ones(batch, device=env.device)
+    total = torch.zeros(batch, device=env.device)
+    solved = []
+    for i in range(horizon):
+      st = env.step(st, policy_fn(ts, st.obs["state"]))
+      if on_step is not None:
+        on_step(i, st)
+      is_solved = st.metrics.get("solved", torch.zeros_like(alive)) > 0
+      solved.append(alive * is_solved)
+      total = total + st.reward * alive
+      alive = alive * (1.0 - st.done)
+  return total, torch.stack(solved, 1)
+
+
 class EvalCallback(Callback):
   """Deterministic eval episodes, all `num_episodes` as one batch of `env`,
   reporting the mean return and success % (an episode with more than 5
@@ -78,19 +100,10 @@ class EvalCallback(Callback):
 
   def evaluate(self, ppo, ts, generator: torch.Generator):
     """(mean return, success rate) as device tensors."""
-    env, pol = self._env, ppo.make_policy_fn(deterministic=True)
-    with torch.no_grad():
-      st = env.reset(generator, self._n)
-      solved = torch.zeros(self._n, dtype=torch.int32, device=env.device)
-      alive = torch.ones(self._n, device=env.device)
-      total = torch.zeros(self._n, device=env.device)
-      for _ in range(env.max_episode_steps):
-        st = env.step(st, pol(ts, st.obs["state"]))
-        is_solved = st.metrics.get("solved", torch.zeros_like(alive)) > 0
-        solved = solved + (alive * is_solved).to(torch.int32)
-        total = total + st.reward * alive
-        alive = alive * (1.0 - st.done)
-    return total.mean(), (solved > 5).to(torch.float32).mean()
+    returns, solved = deterministic_rollout(
+        self._env, ppo.make_policy_fn(deterministic=True), ts, generator,
+        self._n, self._env.max_episode_steps)
+    return returns.mean(), (solved.sum(1) > 5).to(torch.float32).mean()
 
   def on_iteration(self, it, env_steps, metrics, ppo, ts):
     if it % self._every:

@@ -1,4 +1,4 @@
-"""Policy and value networks for PPO, and the squashed-Gaussian policy math.
+"""Policy and value networks of the trainers, and the squashed-Gaussian math.
 
 Sizes follow the JAX package's networks: 3x64 swish MLPs for policy and
 value. The policy is a tanh-squashed diagonal Gaussian over [-1, 1]^nu
@@ -14,7 +14,7 @@ through `torch.func.functional_call`; the modules only fix the layout.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -80,6 +80,21 @@ class ValueNet(nn.Module):
 
   def forward(self, obs: torch.Tensor) -> torch.Tensor:
     return self.mlp(obs).squeeze(-1)
+
+
+def flat_params(params: Dict[str, torch.Tensor]) -> torch.Tensor:
+  """A parameter dict as one vector, in the dict's order (so that an
+  optimizer's arithmetic is a few launches, not a few per tensor)."""
+  return torch.cat([p.reshape(-1) for p in params.values()])
+
+
+def param_views(flat: torch.Tensor, like: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+  """`flat` as views shaped like the dict `like` (the inverse of
+  `flat_params`)."""
+  shapes = [v.shape for v in like.values()]
+  return {k: x.view(s) for k, x, s in zip(
+      like, flat.split([s.numel() for s in shapes]), shapes)}
 
 
 def sample_action_raw(mean: torch.Tensor, log_std: torch.Tensor,

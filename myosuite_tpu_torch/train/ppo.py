@@ -143,6 +143,52 @@ def cosine_decay(init_value: float, decay_steps: int, alpha: float
   return schedule
 
 
+def adam_moments(grads: Sequence[torch.Tensor], count: torch.Tensor,
+                 mu: Sequence[torch.Tensor], nu: Sequence[torch.Tensor],
+                 learning_rate):
+  """optax.adam(learning_rate) on its state (count, mu, nu): (count + 1,
+  the new mu and nu, the updates). `learning_rate` is a float or a
+  schedule of the old count."""
+  lr = learning_rate(count) if callable(learning_rate) else learning_rate
+  count = count + 1
+  mu = [(1 - ADAM_B1) * g + ADAM_B1 * m for g, m in zip(grads, mu)]
+  nu = [(1 - ADAM_B2) * (g * g) + ADAM_B2 * v for g, v in zip(grads, nu)]
+  c = count.to(torch.float32)
+  bc1 = 1 - torch.pow(ADAM_B1, c)
+  bc2 = 1 - torch.pow(ADAM_B2, c)
+  step = [-lr * ((m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS))
+          for m, v in zip(mu, nu)]
+  return count, mu, nu, step
+
+
+@dataclasses.dataclass
+class AdamState:
+  """State of a plain optax.adam (the SAC and NPG optimizers)."""
+  count: torch.Tensor            # () int32
+  mu: List[torch.Tensor]
+  nu: List[torch.Tensor]
+
+
+def init_adam(params: Sequence[torch.Tensor]) -> AdamState:
+  return AdamState(
+      count=torch.zeros((), dtype=torch.int32, device=params[0].device),
+      mu=[torch.zeros_like(p) for p in params],
+      nu=[torch.zeros_like(p) for p in params])
+
+
+def adam_update(params: Sequence[torch.Tensor],
+                grads: Sequence[torch.Tensor], opt: AdamState,
+                learning_rate: float
+                ) -> Tuple[List[torch.Tensor], AdamState]:
+  """One step of optax.adam(learning_rate) then apply_updates: no clip,
+  no non-finite guard."""
+  with torch.no_grad():
+    count, mu, nu, step = adam_moments(grads, opt.count, opt.mu, opt.nu,
+                                       learning_rate)
+    return ([p + u for p, u in zip(params, step)],
+            AdamState(count=count, mu=mu, nu=nu))
+
+
 def apply_update(params: Sequence[torch.Tensor],
                  grads: Sequence[torch.Tensor], opt: OptState,
                  learning_rate, max_grad_norm: float
@@ -161,18 +207,8 @@ def apply_update(params: Sequence[torch.Tensor],
     keep = norm < max_grad_norm
     grads = [torch.where(keep, g, (g / norm) * max_grad_norm) for g in grads]
 
-    # adam
-    count = opt.count + 1
-    mu = [(1 - ADAM_B1) * g + ADAM_B1 * m for g, m in zip(grads, opt.mu)]
-    nu = [(1 - ADAM_B2) * (g * g) + ADAM_B2 * v for g, v in zip(grads, opt.nu)]
-    c = count.to(torch.float32)
-    bc1 = 1 - torch.pow(ADAM_B1, c)
-    bc2 = 1 - torch.pow(ADAM_B2, c)
-    lr = learning_rate(opt.count) if callable(learning_rate) else \
-        learning_rate
-    step = [-lr * ((m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS))
-            for m, v in zip(mu, nu)]
-
+    count, mu, nu, step = adam_moments(grads, opt.count, opt.mu, opt.nu,
+                                       learning_rate)
     sel = lambda new, old: torch.where(take, new, old)
     new_params = [sel(p + u, p) for p, u in zip(params, step)]
     new_opt = OptState(
@@ -240,25 +276,20 @@ class PPO:
     """Policy then value tensors: the optimizer's order."""
     return [*policy_params.values(), *value_params.values()]
 
-  @classmethod
-  def _flatten(cls, policy_params: Params, value_params: Params
+  @staticmethod
+  def _flatten(policy_params: Params, value_params: Params
                ) -> torch.Tensor:
-    """Every parameter in one vector, so that the optimizer's arithmetic
-    is a few launches, not a few per tensor."""
-    return torch.cat([p.reshape(-1)
-                      for p in cls.flat_params(policy_params, value_params)])
+    """Every parameter in one vector, policy then value."""
+    return torch.cat([networks.flat_params(policy_params),
+                      networks.flat_params(value_params)])
 
   @staticmethod
   def _unflatten(flat: torch.Tensor, policy_params: Params,
                  value_params: Params) -> Tuple[Params, Params]:
     """`flat` as views shaped like the two dicts."""
-    shapes = [v.shape for v in (*policy_params.values(),
-                                *value_params.values())]
-    views = [x.view(s) for x, s in zip(
-        flat.split([s.numel() for s in shapes]), shapes)]
-    n = len(policy_params)
-    return (dict(zip(policy_params, views[:n])),
-            dict(zip(value_params, views[n:])))
+    n = sum(p.numel() for p in policy_params.values())
+    return (networks.param_views(flat[:n], policy_params),
+            networks.param_views(flat[n:], value_params))
 
   # -- networks -----------------------------------------------------------
   def _norm_obs(self, stats, obs):

@@ -88,6 +88,7 @@ _ISOLATION = """
 import sys
 sys.modules["jax"] = None
 sys.modules["mujoco"] = None
+sys.modules["gymnasium"] = None
 import torch
 import myosuite_tpu_torch
 from myosuite_tpu_torch.physics import forward, newton_kernel, solver
@@ -116,9 +117,32 @@ trainer = ppo.PPO(myosuite_tpu_torch.make("MtxFingerPoseRandom-v0",
 ts, metrics = trainer.training_step(
     trainer.init(torch.Generator().manual_seed(0)))
 assert all(torch.isfinite(v) for v in metrics.values())
+from myosuite_tpu_torch.train import npg, sac
+from myosuite_tpu_torch.agents import launcher, pretrained, reflex
+from myosuite_tpu_torch.envs import gym_adapter, obs_vec
+assert gym_adapter.gym is None
+elbow = myosuite_tpu_torch.make("MtxElbowPoseRandom-v0", device="cpu")
+trainer, learner = pretrained.load("MtxElbowPoseRandom-v0", env=elbow)
+out = pretrained.evaluate(trainer, learner, torch.Generator().manual_seed(0),
+                          batch=2, horizon=1)
+assert torch.isfinite(out["returns"]).all()
+cfg = sac.default_config()
+cfg.num_envs, cfg.unroll_length, cfg.replay_capacity = 2, 1, 4
+cfg.learning_starts, cfg.batch_size, cfg.grad_updates_per_epoch = 0, 2, 1
+cfg.policy_hidden = cfg.q_hidden = (8,)
+trainer = sac.SAC(elbow, cfg)
+ts, metrics = trainer.training_step(trainer.init(torch.Generator()))
+assert float(metrics["q_loss"]) > 0
+cfg = npg.default_config()
+cfg.num_envs, cfg.unroll_length, cfg.cg_iters = 2, 1, 2
+cfg.value_batches, cfg.policy_hidden, cfg.value_hidden = 1, (8,), (8,)
+trainer = npg.NPG(elbow, cfg)
+ts, metrics = trainer.training_step(trainer.init(torch.Generator()))
+assert all(torch.isfinite(v) for v in metrics.values())
 bad = [k for k in sys.modules
        if k.split(".")[0] in ("myosuite_tpu", "jax", "flax", "mujoco",
-                              "ml_collections")
+                              "ml_collections", "optax", "orbax",
+                              "gymnasium")
        and sys.modules[k] is not None]
 assert not bad, bad
 print("ok")
@@ -126,11 +150,13 @@ print("ok")
 
 
 def test_port_imports_no_jax_and_no_myosuite_tpu():
-  """With jax and mujoco unimportable, the port imports every module,
-  steps the committed hand model, the Fati arm reach, the Sarc torso, the
-  Reaf hand, SAR's Reorient8 and ElbowPoseExoRandom (per-env models) and
-  a MyoDM id, takes a PPO training step on the finger, and loads no
-  module of the JAX package."""
+  """With jax, mujoco and gymnasium unimportable, the port imports every
+  module, steps the committed hand model, the Fati arm reach, the Sarc
+  torso, the Reaf hand, SAR's Reorient8 and ElbowPoseExoRandom (per-env
+  models) and a MyoDM id, takes a PPO training step on the finger,
+  restores the committed elbow policy, takes one SAC and one NPG step at a
+  tiny config on the elbow, and loads no module of the JAX package, flax,
+  optax, orbax or gymnasium."""
   proc = subprocess.run([sys.executable, "-c", _ISOLATION], cwd=_REPO,
                         capture_output=True, text=True, timeout=300)
   assert proc.returncode == 0, proc.stderr

@@ -201,6 +201,29 @@ def test_kernel_bit_equal_at_challenge_inputs(cuda, name):
 
 
 @pytest.mark.cuda
+def test_kernel_bit_equal_at_trained_stand_policy_inputs(cuda):
+  """The committed stand policy, restored on the card, drives
+  MtxLegStand-v0 for 20 control steps at batch 64; the solver's inputs at
+  the states it reaches (the leg's (20, 54) under a trained policy's
+  contact load) give the kernel and its plain version bit-equal
+  outputs."""
+  from myosuite_tpu_torch.agents import pretrained
+  trainer, ts = pretrained.load("MtxLegStand-v0", device=cuda)
+  env = trainer.env._env
+  pol = trainer.make_policy_fn(deterministic=True)
+  state = env.reset(torch.Generator(cuda).manual_seed(0), 64)
+  with torch.no_grad():
+    for _ in range(20):
+      state = env.step(state, pol(ts, state.obs["state"]))
+  args, kw = forward.solve_inputs(env.model, state.data)
+  assert args[1].shape[1:] == (54, 20)
+  out = newton_kernel.newton_solve(*args, **kw)
+  ref = newton_kernel.newton_solve_reference(*args, **kw)
+  for o, r, name in zip(out, ref, NAMES):
+    assert torch.equal(o, r), name
+
+
+@pytest.mark.cuda
 def test_kernel_takes_every_myodm_scene(cuda):
   """Each committed MyoDM scene's recorded (nv, nefc) fits a block's
   shared memory in the built library."""

@@ -198,25 +198,54 @@ def _walk_cfg(env, p="cfg_walk_"):
   return out
 
 
+def _reflex_cfg(env, fields, p="cfg_reflex_"):
+  """The tables the JAX package's ReflexController reads from a leg env
+  with MuJoCo, as the "<p>*" arrays of a model file: the actuator masks
+  per side and group, the feet's contact-slot masks (built by the port's
+  `challenge.contact_slot_mask` from the geoms MuJoCo names), the
+  hip-flexion qpos addresses and the body weight."""
+  from myosuite_tpu.agents import reflex as jreflex
+  from myosuite_tpu.envs.challenge import _geom_ids
+  from myosuite_tpu_torch.agents.reflex import FOOT_GEOMS, GROUPS, SIDES
+  from myosuite_tpu_torch.envs.challenge import contact_slot_mask
+  from myosuite_tpu_torch.physics import io as torch_io
+
+  ctl = jreflex.ReflexController(env)
+  model = torch_io.model_from_numpy(fields, device="cpu")
+  grf = [contact_slot_mask(model, _geom_ids(
+      env.mj_model, [f"{s}_{g}" for g in FOOT_GEOMS])).numpy()
+         for s in SIDES]
+  return {
+      p + "group_names": np.asarray(list(GROUPS)),
+      p + "masks": np.asarray([[np.asarray(ctl._masks[s][g]) for g in GROUPS]
+                               for s in SIDES], dtype=np.float32),
+      p + "grf": np.asarray(grf, dtype=np.float32),
+      p + "hip_qadr": np.asarray([ctl._hip_qadr[s] for s in SIDES],
+                                 dtype=np.int32),
+      p + "weight": np.asarray(ctl._weight, dtype=np.float64)}
+
+
 def leg_export():
-  """Field dict and walk config of the JAX package's MtxLegWalk-v0
-  (myosuite_tpu_torch/assets/myoleg.npz)."""
+  """Field dict, walk config and reflex tables of the JAX package's
+  MtxLegWalk-v0 (myosuite_tpu_torch/assets/myoleg.npz)."""
   import myosuite_tpu
   from myosuite_tpu_torch.physics import io as torch_io
 
   env = myosuite_tpu.make("MtxLegWalk-v0")
-  return torch_io.model_fields(env.mj_model), _walk_cfg(env)
+  fields = torch_io.model_fields(env.mj_model)
+  return fields, {**_walk_cfg(env), **_reflex_cfg(env, fields)}
 
 
 def leg_terrain_export():
-  """Field dict and walk config of the JAX package's MtxLegWalkRough-v0,
-  whose leg walks on a heightfield (myosuite_tpu_torch/assets/
-  myoleg_terrain.npz)."""
+  """Field dict, walk config and reflex tables of the JAX package's
+  MtxLegWalkRough-v0, whose leg walks on a heightfield
+  (myosuite_tpu_torch/assets/myoleg_terrain.npz)."""
   import myosuite_tpu
   from myosuite_tpu_torch.physics import io as torch_io
 
   env = myosuite_tpu.make("MtxLegWalkRough-v0")
-  return torch_io.model_fields(env.mj_model), _walk_cfg(env)
+  fields = torch_io.model_fields(env.mj_model)
+  return fields, {**_walk_cfg(env), **_reflex_cfg(env, fields)}
 
 
 # the JAX package's env whose model and task config each manipulation
