@@ -49,7 +49,16 @@ deterministic evals at batch 4096 against the JAX package's own eval
 (assets/pretrained_golden.npz), the closed-loop goldens of the elbow and
 the stand, the kernel against its plain version at the trained stand
 policy's states, and the reflex controller's 150-step rollout of the walk
-(its stimulations against the CPU controller's). Prints one JSON line of
+(its stimulations against the CPU controller's). Phase 13 drives the
+scale-out and the user tools: a distributed PPO training step of the hand
+over NCCL at world size 1 (bit-equal to the plain rollout and update fed
+copies of the rank's generators), two gloo ranks on the one card with 2048
+envs each (bit-identical learners, each bit-equal to the single-rank update
+of the gathered trajectory), C5 at the shard size (a control step of 2048
+rows against the same rows of 4096, printed), the robot layer and inverse
+kinematics at batch 4096 against the CPU, a 4096-env rollout through the
+native trace sink and examine_env on the shipped elbow policy. Prints one
+JSON line of
 kernel numbers (with a `shapes` list per env and (nv, nefc)) and, last,
 {"ok": true, "device": {...}}. Exits non-zero, with no result line,
 when any phase fails or when there is no CUDA card.
@@ -1737,6 +1746,516 @@ def agents_phase(dev):
   return dict(sac=sac, npg=npg, stand=stand, reflex=refl)
 
 
+MESH_TIMEOUT = 300       # phase 13: seconds a rank or a CLI run may take
+IK_ROWS_CPU = 1024       # phase 13: IK rows held against the CPU
+IK_TOL = 2e-3            # phase 13: IK stopping tolerance (m)
+SINK_STEPS = 10          # phase 13: control steps written through the sink
+
+
+def _clone_generator(g):
+  c = torch.Generator(device=g.device)
+  c.set_state(g.get_state())
+  return c
+
+
+def _cloned(ts):
+  """`ts` with every generator (its own two and the env state's) copied,
+  so a second run from it draws what the first drew."""
+  info = {k: _clone_generator(v) if isinstance(v, torch.Generator) else v
+          for k, v in ts.env_state.info.items()}
+  return ts.replace(env_state=ts.env_state.replace(info=info),
+                    generator=_clone_generator(ts.generator),
+                    rollout_generator=_clone_generator(ts.rollout_generator))
+
+
+def _learner(ts):
+  """Params, Adam's moments and count, and the observation statistics."""
+  from myosuite_tpu_torch.train import ppo as ppo_mod
+  o, s = ts.opt_state, ts.obs_stats
+  return (ppo_mod.PPO.flat_params(ts.policy_params, ts.value_params)
+          + o.mu + o.nu + [o.count, s.count, s.mean, s.m2])
+
+
+def _gap(a, b):
+  """(bit-equal, largest absolute difference) of two tensor lists."""
+  same = all(torch.equal(x, y) for x, y in zip(a, b))
+  gap = max(float((x.double() - y.double()).abs().max()) for x, y in
+            zip(a, b))
+  return same, gap
+
+
+def _timed_training_step(trainer, ts, mesh, sync):
+  """One distributed training step, split at the rollout's end and the
+  update's start and end (a synchronize at each); returns (ts, metrics,
+  {rollout_ms, gather_ms, update_ms, wall_ms}, what the update was fed)."""
+  marks, fed = {}, {}
+  unroll, update = trainer._unroll, trainer._update_epoch
+
+  def timed_unroll(ts):
+    out = unroll(ts)
+    sync()
+    marks["unrolled"] = time.perf_counter()
+    return out
+
+  def timed_update(ts, traj, stats, perms=None, last_obs=None):
+    fed.update(ts=ts, traj=traj, stats=stats, last_obs=last_obs,
+               generator=_clone_generator(ts.generator))
+    sync()
+    marks["update"] = time.perf_counter()
+    out = update(ts, traj, stats, perms=perms, last_obs=last_obs)
+    sync()
+    marks["updated"] = time.perf_counter()
+    return out
+
+  trainer._unroll, trainer._update_epoch = timed_unroll, timed_update
+  try:
+    sync()
+    t0 = time.perf_counter()
+    ts, metrics = trainer.training_step(ts, mesh)
+    sync()
+    t1 = time.perf_counter()
+  finally:
+    trainer._unroll, trainer._update_epoch = unroll, update
+  split = dict(rollout_ms=(marks["unrolled"] - t0) * 1e3,
+               gather_ms=(marks["update"] - marks["unrolled"]) * 1e3,
+               update_ms=(marks["updated"] - marks["update"]) * 1e3,
+               wall_ms=(t1 - t0) * 1e3)
+  return ts, metrics, split, fed
+
+
+def nccl_step_check(dev, build):
+  """13(a): a distributed PPO training step of the hand at
+  default_config() over NCCL at world size 1 in this process: one warm-up
+  and one timed step, bit-equal to the plain rollout driven by a copy of
+  the rank's rollout generator and the plain _update_epoch with the
+  permutations of a copy of the permutation generator; 100 launches."""
+  import torch.distributed as dist
+  import myosuite_tpu_torch
+  from myosuite_tpu_torch.parallel import mesh as mesh_mod
+  from myosuite_tpu_torch.physics import newton_kernel as nk
+  from myosuite_tpu_torch.train import ppo as ppo_mod
+  rendezvous = os.path.join(build, f"nccl_rendezvous_{os.getpid()}")
+  if os.path.exists(rendezvous):
+    os.unlink(rendezvous)
+  mesh_mod.initialize_distributed(backend="nccl",
+                                  init_method=f"file://{rendezvous}",
+                                  world_size=1, rank=0, device=dev)
+  try:
+    mesh = mesh_mod.make_mesh(dev)
+    env = myosuite_tpu_torch.make("MtxHandReachRandom-v0",
+                                  device=mesh.device)
+    cfg = ppo_mod.default_config()
+    trainer = ppo_mod.PPO(env, cfg)
+    ts = mesh_mod.place(trainer.init(torch.Generator(dev).manual_seed(
+        cfg.seed)), trainer, mesh)
+    ts, _ = trainer.training_step(ts, mesh)   # warm-up
+    torch.cuda.synchronize()
+    before = _cloned(ts)
+    shapes = []
+    gather = mesh_mod.gather_env_rows
+
+    def watched(local, mesh):
+      shapes.append(tuple(local.shape))
+      return gather(local, mesh)
+    mesh_mod.gather_env_rows = watched
+    nk.launches = 0
+    try:
+      ts, metrics, split, _ = _timed_training_step(
+          trainer, ts, mesh, torch.cuda.synchronize)
+    finally:
+      mesh_mod.gather_env_rows = gather
+    launches = nk.launches
+    rows = (cfg.num_envs,) + shapes[0][1:]
+    nbytes = int(np.prod(rows)) * 4
+    buf = torch.zeros(rows, device=mesh.device)
+    reduce_ms = cuda_ms(lambda: dist.all_reduce(buf, group=mesh.group), 10)
+    # the plain path from the same state
+    plain = before.replace(generator=before.rollout_generator,
+                           rollout_generator=None)
+    plain, traj = trainer._rollout(plain)
+    plain, _ = trainer._update_epoch(
+        plain.replace(generator=before.generator), traj,
+        before.obs_stats)
+    same, gap = _gap(_learner(ts), _learner(plain))
+    sps = cfg.unroll_length * cfg.num_envs / (split["wall_ms"] / 1e3)
+    print(f"  13a NCCL, world size 1: rollout {split['rollout_ms']:.1f} ms, "
+          f"gather {split['gather_ms']:.1f} ms (the pack, one all-reduce of "
+          f"{rows} float32 = {nbytes / 1e6:.2f} MB, the unpack, the "
+          f"statistics; the all-reduce alone {reduce_ms:.3f} ms), update "
+          f"{split['update_ms']:.1f} ms, {split['wall_ms']:.1f} ms in all = "
+          f"{sps:.0f} training env-steps/s; Newton launches {launches}; "
+          f"learner bit-equal to the plain rollout and update {same} (gap "
+          f"{gap:.3e}); reward_per_step "
+          f"{float(metrics['reward_per_step']):.4g}")
+    if launches != cfg.unroll_length * env._n_substeps:
+      raise AssertionError(f"distributed step launched the kernel "
+                           f"{launches} times")
+    if not same:
+      raise AssertionError(f"distributed step at world size 1 differs from "
+                           f"the plain path by {gap}")
+    return dict(split, bytes=nbytes, reduce_ms=reduce_ms, launches=launches,
+                env_steps_per_s=sps)
+  finally:
+    dist.destroy_process_group()
+    if os.path.exists(rendezvous):
+      os.unlink(rendezvous)
+
+
+# one rank of 13(b): argv rank, world, rendezvous URL, output directory,
+# device, global env batch
+MESH_RANK = r"""
+import datetime, json, os, sys
+import torch
+import chip_smoke
+import myosuite_tpu_torch
+from myosuite_tpu_torch.parallel import mesh as mesh_mod
+from myosuite_tpu_torch.physics import newton_kernel as nk
+from myosuite_tpu_torch.train import ppo as ppo_mod
+
+rank, world, init, out = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                          sys.argv[4])
+dev, batch = torch.device(sys.argv[5]), int(sys.argv[6])
+sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+# the host's cores shared between the ranks (torchrun sets
+# OMP_NUM_THREADS=1 for the same reason): CPU ops' spinning threads would
+# otherwise stall each other
+torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+mesh_mod.initialize_distributed(backend="gloo", init_method=init,
+                                world_size=world, rank=rank,
+                                timeout=datetime.timedelta(seconds=240))
+mesh = mesh_mod.make_mesh(dev)
+env = myosuite_tpu_torch.make("MtxHandReachRandom-v0", device=dev)
+cfg = ppo_mod.default_config()
+cfg.num_envs = batch
+trainer = ppo_mod.PPO(env, cfg)
+ts = mesh_mod.place(trainer.init(torch.Generator(dev).manual_seed(cfg.seed)),
+                    trainer, mesh)
+ts, _ = trainer.training_step(ts, mesh)   # warm-up
+nk.launches = 0
+ts, metrics, split, fed = chip_smoke._timed_training_step(
+    trainer, ts, mesh, sync)
+launches = nk.launches
+singles = []
+for _ in range(2):
+  ref, _ = trainer._update_epoch(
+      fed["ts"].replace(generator=chip_smoke._clone_generator(
+          fed["generator"])), fed["traj"], fed["stats"],
+      last_obs=fed["last_obs"])
+  singles.append(chip_smoke._learner(ref))
+ours = chip_smoke._learner(ts)
+repeat_same, repeat_gap = chip_smoke._gap(singles[0], singles[1])
+same, gap = chip_smoke._gap(ours, singles[0])
+torch.save([t.cpu() for t in ours], out + "/rank%d.pt" % rank)
+print("RANK_RESULT " + json.dumps(dict(
+    split, rank=rank, launches=launches, rows=ts.env_state.obs[
+        "state"].shape[0], bit_equal_single=same, gap_single=gap,
+    singles_equal=repeat_same, singles_gap=repeat_gap,
+    reward_per_step=float(metrics["reward_per_step"]))), flush=True)
+torch.distributed.destroy_process_group()
+"""
+
+
+def gloo_ranks_check(dev, build):
+  """13(b): two ranks on the one card over gloo (NCCL refuses two ranks
+  on one GPU), 2048 envs each, as subprocesses with a file:// rendezvous
+  and a timeout: after the timed step both ranks' learners are
+  bit-identical, and each rank's equals the single-rank _update_epoch of
+  the gathered trajectory with the same permutations (or, where two such
+  single-rank updates already differ on the card, lies within their
+  gap)."""
+  out = os.path.join(build, f"gloo_ranks_{os.getpid()}")
+  os.makedirs(out, exist_ok=True)
+  rendezvous = os.path.join(out, "rendezvous")
+  if os.path.exists(rendezvous):
+    os.unlink(rendezvous)
+  root = os.path.dirname(os.path.abspath(__file__))
+  # each rank's output goes to a file: a full pipe that nobody reads
+  # would stop a rank mid-collective and the other with it
+  logs = [open(os.path.join(out, f"rank{r}.log"), "w+") for r in range(2)]
+  procs = [subprocess.Popen(
+      [sys.executable, "-c", MESH_RANK, str(r), "2", f"file://{rendezvous}",
+       out, str(dev), str(BATCH)], cwd=root, stdout=logs[r],
+      stderr=subprocess.STDOUT, text=True) for r in range(2)]
+  results = []
+  try:
+    deadline = time.monotonic() + MESH_TIMEOUT
+    for p, log in zip(procs, logs):
+      p.wait(timeout=max(1.0, deadline - time.monotonic()))
+      log.seek(0)
+      text = log.read()
+      lines = [l for l in text.splitlines() if l.startswith("RANK_RESULT ")]
+      if p.returncode != 0 or not lines:
+        raise AssertionError(f"a gloo rank failed ({p.returncode}): "
+                             f"{text[-3000:]}")
+      results.append(json.loads(lines[-1][len("RANK_RESULT "):]))
+  finally:
+    for p in procs:
+      if p.poll() is None:
+        p.kill()
+        p.wait()
+    for log in logs:
+      log.close()
+  learners = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=True)
+              for r in range(2)]
+  identical, rank_gap = _gap(*learners)
+  wall = max(r["wall_ms"] for r in results) / 1e3
+  sps = 10 * BATCH / wall
+  for r in results:
+    print(f"  13b gloo rank {r['rank']} ({r['rows']} envs): rollout "
+          f"{r['rollout_ms']:.1f} ms, gather {r['gather_ms']:.1f} ms, update "
+          f"{r['update_ms']:.1f} ms, {r['wall_ms']:.1f} ms in all; Newton "
+          f"launches {r['launches']}; learner bit-equal to the single-rank "
+          f"update of the gathered trajectory {r['bit_equal_single']} (gap "
+          f"{r['gap_single']:.3e}; two single-rank updates bit-equal "
+          f"{r['singles_equal']}, gap {r['singles_gap']:.3e})")
+  print(f"  13b two ranks: learners bit-identical {identical} (gap "
+        f"{rank_gap:.3e}); {sps:.0f} global training env-steps/s")
+  if not identical:
+    raise AssertionError(f"the two ranks' learners differ by {rank_gap}")
+  for r in results:
+    ok = (r["bit_equal_single"] if r["singles_equal"]
+          else r["gap_single"] <= r["singles_gap"])
+    if not ok or r["launches"] != 100 or r["rows"] != BATCH // 2:
+      raise AssertionError(f"gloo rank {r['rank']}: {r}")
+  return dict(ranks=results, env_steps_per_s=sps)
+
+
+C5_FIELDS = ("obs", "reward", "qpos", "qvel", "act", "qacc")
+
+
+def shard_c5_check(dev):
+  """13(c): one control step at batch BATCH and of each half (BATCH / 2
+  rows) from the same state and actions: per field bit-equal or its
+  largest gap. A measurement (ROADMAP C5), not a gate."""
+  import myosuite_tpu_torch
+  from myosuite_tpu_torch.parallel.mesh import take_rows
+  out = {}
+  half = BATCH // 2
+  for name in ("MtxHandReachRandom-v0", "MtxHandReorient100-v0"):
+    env = myosuite_tpu_torch.make(name, device=dev)
+    gen = torch.Generator(dev).manual_seed(5)
+    state = env.reset(gen, BATCH)
+    state = env.step(state, torch.rand(BATCH, env.action_size, generator=gen,
+                                       device=dev))
+    action = torch.rand(BATCH, env.action_size, generator=gen, device=dev)
+    pick = lambda s: (s.obs["state"], s.reward, s.data.qpos, s.data.qvel,
+                      s.data.act, s.data.qacc)
+    full = pick(env.step(state, action))
+    parts = [pick(env.step(take_rows(state, slice(h * half, (h + 1) * half),
+                                     BATCH),
+                           action[h * half:(h + 1) * half]))
+             for h in range(2)]
+    report = {}
+    for i, k in enumerate(C5_FIELDS):
+      both = torch.cat([p[i] for p in parts])
+      gap = float((both.double() - full[i].double()).abs().max())
+      scale = float(full[i].abs().max())
+      report[k] = dict(bit_equal=bool(torch.equal(both, full[i])), gap=gap,
+                       scale=scale)
+    out[name] = report
+    print(f"  13c C5 at {half} rows, {name}: " + "; ".join(
+        f"{k} " + ("bit-equal" if v["bit_equal"] else
+                   f"{v['gap']:.3e} of {v['scale']:.3e}")
+        for k, v in report.items()))
+  return out
+
+
+def robot_ik_check(dev):
+  """13(d), robot and IK on the hand at batch BATCH: the Robot methods
+  and sensor2sim on the card against the port on the CPU for 8 envs
+  (1e-5 relative); sensor2sim of noise-free sensors gives the settled
+  state's kinematics back; IK to the forward kinematics of perturbed
+  qposes, the card against the CPU on IK_ROWS_CPU rows."""
+  import myosuite_tpu_torch
+  from myosuite_tpu_torch.physics import kinematics
+  from myosuite_tpu_torch.robot import robot
+  from myosuite_tpu_torch.utils import inverse_kinematics as ik
+  name = "MtxHandReachRandom-v0"
+  env = myosuite_tpu_torch.make(name, device=dev)
+  cpu = myosuite_tpu_torch.make(name, device="cpu")
+  gen = torch.Generator(dev).manual_seed(7)
+  state = env.reset(gen, BATCH)
+  d = state.data
+  ctrl = 3 * torch.rand(BATCH, env.action_size, generator=gen,
+                        device=dev) - 1.5
+  rows = slice(0, 8)
+  small = lambda x: x[rows].cpu()
+  dc = cpu.reset(torch.Generator().manual_seed(0), 8).data.replace(
+      qpos=small(d.qpos), qvel=small(d.qvel), act=small(d.act),
+      actuator_length=small(d.actuator_length))
+  worst = 0.0
+
+  def close(label, a, b):
+    nonlocal worst
+    a, b = a.double().cpu(), b.double().cpu()
+    err = float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+    worst = max(worst, err)
+    if not err <= 1e-5:
+      raise AssertionError(f"robot {label}: card against CPU {err}")
+
+  t0 = time.perf_counter()
+  for vel in (None, 2.0):
+    r, rc = robot.Robot(env.model, vel_limit=vel), robot.Robot(
+        cpu.model, vel_limit=vel)
+    close("normalize_actions", r.normalize_actions(ctrl)[rows],
+          rc.normalize_actions(small(ctrl)))
+    close("process_actuator", r.process_actuator(d, ctrl, env.dt)[rows],
+          rc.process_actuator(dc, small(ctrl), env.dt))
+  sensors = robot.Robot(env.model).get_sensors(d)
+  back = robot.sensor2sim(env.model, d, sensors)
+  back_cpu = robot.sensor2sim(cpu.model, dc, robot.Robot(
+      cpu.model).get_sensors(dc))
+  kin = ("xpos", "xquat", "site_xpos", "subtree_com", "ten_length",
+         "actuator_length", "actuator_moment", "qM", "qfrc_bias")
+  for k in kin:
+    close(f"sensor2sim {k}", getattr(back, k)[rows], getattr(back_cpu, k))
+  own = all(torch.equal(getattr(back, k), getattr(d, k)) for k in kin)
+  own_gap = max(float((getattr(back, k) - getattr(d, k)).abs().max()
+                      / max(1.0, float(getattr(d, k).abs().max())))
+                for k in kin)
+  torch.cuda.synchronize()
+  robot_s = time.perf_counter() - t0
+  print(f"  13d robot: normalize_actions, process_actuator and sensor2sim "
+        f"at batch {BATCH} against the CPU on 8 envs, largest relative gap "
+        f"{worst:.3e} (tol 1e-5); sensor2sim of noise-free sensors gives "
+        f"the reset's own kinematics back: bit-equal {own}, gap "
+        f"{own_gap:.3e}; {robot_s:.2f} s")
+  if not own_gap <= 1e-6:
+    raise AssertionError(f"sensor2sim moved the state's kinematics by "
+                         f"{own_gap}")
+
+  site = int(env._tip_sids[0])
+  lo, hi = env.model.jnt_range[:, 0], env.model.jnt_range[:, 1]
+  qt = torch.clamp(d.qpos + 0.6 * torch.rand(d.qpos.shape, generator=gen,
+                                             device=dev) - 0.3, lo, hi)
+  target = kinematics.kinematics(env.model, d.replace(qpos=qt)).site_xpos[
+      :, site]
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  res = ik.qpos_from_site_pose(env.model, d, site, target, tol=IK_TOL)
+  torch.cuda.synchronize()
+  ik_ms = (time.perf_counter() - t0) * 1e3
+  n = IK_ROWS_CPU
+  dcpu = cpu.reset(torch.Generator().manual_seed(0), n).data.replace(
+      qpos=d.qpos[:n].cpu())
+  ref = ik.qpos_from_site_pose(cpu.model, dcpu, site, target[:n].cpu(),
+                               tol=IK_TOL)
+  steps, err = res.steps[:n].cpu(), res.err_norm[:n].cpu()
+  conv, conv_ref = err <= IK_TOL, ref.err_norm <= IK_TOL
+  near = ((ref.err_norm - IK_TOL).abs() <= 0.1 * IK_TOL) | (
+      (err - IK_TOL).abs() <= 0.1 * IK_TOL)
+  both = conv & conv_ref
+  qgap = float((res.qpos[:n].cpu() - ref.qpos)[both].abs().max()) \
+      if bool(both.any()) else 0.0
+  step_gap = int((steps - ref.steps).abs().max())
+  differ = int(((conv != conv_ref) & ~near).sum())
+  share = float((res.err_norm <= IK_TOL).float().mean())
+  hist = torch.bincount(res.steps.cpu().long(), minlength=51)
+  bins = [(0, 0), (1, 5), (6, 10), (11, 20), (21, 30), (31, 49), (50, 50)]
+  print(f"  13d IK at batch {BATCH} (hand, site {site}, tol {IK_TOL}): "
+        f"{ik_ms:.1f} ms for 50 iterations; converged {100 * share:.2f}%; "
+        f"steps " + ", ".join(f"{a}-{b}: {int(hist[a:b + 1].sum())}"
+                              for a, b in bins)
+        + f"; against the CPU on {n} rows: qpos {qgap:.3e} where both "
+        f"converged (tol 1e-4), steps within {step_gap} (tol 1), "
+        f"converged sets differ on {differ} rows away from tol")
+  if not (qgap <= 1e-4 and step_gap <= 1 and differ == 0):
+    raise AssertionError("IK on the card disagrees with the CPU")
+  return dict(robot_gap=worst, ik_ms=ik_ms, ik_converged=share,
+              ik_qgap=qgap, robot_s=robot_s)
+
+
+def sink_check(dev, build):
+  """13(d), the native sink: SINK_STEPS control steps of the hand at
+  batch BATCH written as .mtp and read back equal."""
+  import myosuite_tpu_torch
+  from myosuite_tpu_torch import native
+  from myosuite_tpu_torch.logger.trace import Trace, rollout_to_trace
+  env = myosuite_tpu_torch.make("MtxHandReachRandom-v0", device=dev)
+  gen = torch.Generator(dev).manual_seed(9)
+  state = env.reset(gen, BATCH)
+  rec = {k: [] for k in ("obs", "reward", "done", "qpos", "qvel", "act")}
+  for _ in range(SINK_STEPS):
+    state = env.step(state, torch.rand(BATCH, env.action_size, generator=gen,
+                                       device=dev))
+    d = state.data
+    for k, v in zip(rec, (state.obs["state"], state.reward, state.done,
+                          d.qpos, d.qvel, d.act)):
+      rec[k].append(v)
+  host = {k: torch.stack(v).cpu() for k, v in rec.items()}
+  path = os.path.join(build, f"rollout_{os.getpid()}.mtp")
+  available = native.native_available()
+  tr = rollout_to_trace(host)
+  t0 = time.perf_counter()
+  tr.save(path)
+  seconds = time.perf_counter() - t0
+  size = os.path.getsize(path)
+  back = Trace.load(path)
+  same = all(np.array_equal(back["rollout0"][k], v.numpy())
+             for k, v in host.items())
+  os.unlink(path)
+  print(f"  13d sink: {SINK_STEPS} steps x {BATCH} envs, {size / 1e6:.1f} MB "
+        f"written as .mtp in {seconds * 1e3:.1f} ms = "
+        f"{size / 1e6 / seconds:.0f} MB/s (warm page cache); read back "
+        f"equal {same}; native_available {available}")
+  if not (available and same):
+    raise AssertionError(f"native sink: available {available}, equal {same}")
+  return dict(mb=size / 1e6, mb_per_s=size / 1e6 / seconds)
+
+
+def examine_env_check(dev):
+  """13(d), examine_env on the card as a user runs it: the shipped elbow
+  policy over 64 episodes; success beside the JAX package's eval, gated
+  as phase 12 gates it."""
+  from myosuite_tpu_torch.agents import pretrained
+  from myosuite_tpu_torch.envs.registry import ASSETS
+  env_id = "MtxElbowPoseRandom-v0"
+  root = os.path.dirname(os.path.abspath(__file__))
+  t0 = time.perf_counter()
+  proc = subprocess.run(
+      [sys.executable, "-m", "myosuite_tpu_torch.utils.examine_env", "-e",
+       env_id, "-p", pretrained.checkpoint_dir(env_id), "-n", "64",
+       "--device", str(dev)],
+      cwd=root, capture_output=True, text=True, timeout=MESH_TIMEOUT)
+  seconds = time.perf_counter() - t0
+  if proc.returncode != 0:
+    raise AssertionError(f"examine_env failed: {proc.stderr[-3000:]}")
+  line = proc.stdout.strip().splitlines()[0]
+  succ = float(line.split("success%:")[1].split()[0])
+  with np.load(f"{ASSETS}/pretrained_golden.npz") as z:
+    n = z["elbow_returns"].shape[0]
+    p_jax = float(z["elbow_success"]) / 100.0
+  bound = 100.0 * (3 * np.sqrt(p_jax * (1 - p_jax) / n) + 0.05)
+  print(f"  13d examine_env -e {env_id} -p <the shipped policy> -n 64: "
+        f"\"{line}\" (JAX package {100 * p_jax:.2f}% over {n}; bound "
+        f"+-{bound:.2f}); {seconds:.1f} s with the process start")
+  if not abs(succ - 100.0 * p_jax) <= bound:
+    raise AssertionError(f"examine_env success {succ} against {p_jax}")
+  return dict(success=succ, seconds=seconds)
+
+
+def mesh_tools_phase(dev, build):
+  """Phase 13: scale-out over ranks and the user tools."""
+  watch = Stopwatch()
+  print("phase 13 scale-out and tools: MtxHandReachRandom-v0 at "
+        "default_config()")
+  with watch.part("NCCL step"):
+    nccl = nccl_step_check(dev, build)
+  with watch.part("gloo ranks"):
+    gloo = gloo_ranks_check(dev, build)
+  with watch.part("C5 at the shard size"):
+    c5 = shard_c5_check(dev)
+  with watch.part("robot and IK"):
+    tools = robot_ik_check(dev)
+  with watch.part("sink"):
+    sink = sink_check(dev, build)
+  with watch.part("examine_env"):
+    exam = examine_env_check(dev)
+  watch.report("phase 13")
+  return dict(nccl=nccl, gloo=gloo, c5=c5, tools=tools, sink=sink,
+              examine_env=exam)
+
+
 def main():
   parser = argparse.ArgumentParser()
   parser.add_argument("--parent", help="checkout whose Newton kernel to "
@@ -1897,11 +2416,15 @@ def main():
   stand = agents["stand"]
 
   mark(12)
+  # 13. scale-out over ranks and the user tools
+  mesh_tools_phase(dev, build)
+
+  mark(13)
   print("phase ends (s since the start): " + ", ".join(
       f"{n} {t:.0f}" for n, t in ends))
   # the card again, on one of the last lines (the head of a long output
   # may be cut off where it is read)
-  print(f"phases 1-12 in {time.perf_counter() - t_start:.0f} s")
+  print(f"phases 1-13 in {time.perf_counter() - t_start:.0f} s")
   print(f"nvidia-smi: {smi}")
   print(json.dumps({"kernels": [{
       "name": "newton_solver", "route": "cuda",

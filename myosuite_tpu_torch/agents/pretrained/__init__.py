@@ -54,6 +54,12 @@ def load(env_id: str, device="cuda", env=None):
     raise FileNotFoundError(f"no pretrained policy for {env_id}")
   env = env if env is not None else myosuite_tpu_torch.make(env_id,
                                                             device=device)
+  return load_path(path, env)
+
+
+def load_path(path: str, env):
+  """(PPO trainer bound to `env`, the learner of the checkpoint at `path`,
+  a `step_<n>` directory of a full or learner-only checkpoint)."""
   saved = torch.load(os.path.join(path, checkpoint.FILE), map_location="cpu",
                      weights_only=True)
   obs_dim = saved["obs_stats"]["mean"].shape[0]

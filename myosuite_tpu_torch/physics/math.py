@@ -74,6 +74,40 @@ def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
   ], dim=-2)
 
 
+def mat_to_quat(m: torch.Tensor) -> torch.Tensor:
+  """Rotation matrices (..., 3, 3) -> unit quaternions (..., 4), w >= 0:
+  Shepperd's four constructions, each env taking the one its trace and
+  diagonal select, as the JAX package's branch-free `mat_to_quat`."""
+  m00, m11, m22 = m[..., 0, 0], m[..., 1, 1], m[..., 2, 2]
+  m01, m02, m10 = m[..., 0, 1], m[..., 0, 2], m[..., 1, 0]
+  m12, m20, m21 = m[..., 1, 2], m[..., 2, 0], m[..., 2, 1]
+  tr = m00 + m11 + m22
+  root = lambda x: torch.sqrt(torch.clamp(x, min=_EPS)) * 2.0
+  s = root(tr + 1.0)
+  case_w = torch.stack([0.25 * s, (m21 - m12) / s, (m02 - m20) / s,
+                        (m10 - m01) / s], -1)
+  s = root(1.0 + m00 - m11 - m22)
+  case_x = torch.stack([(m21 - m12) / s, 0.25 * s, (m01 + m10) / s,
+                        (m02 + m20) / s], -1)
+  s = root(1.0 - m00 + m11 - m22)
+  case_y = torch.stack([(m02 - m20) / s, (m01 + m10) / s, 0.25 * s,
+                        (m12 + m21) / s], -1)
+  s = root(1.0 - m00 - m11 + m22)
+  case_z = torch.stack([(m10 - m01) / s, (m02 + m20) / s, (m12 + m21) / s,
+                        0.25 * s], -1)
+  pick = lambda c, a, b: torch.where(c[..., None], a, b)
+  q = pick(tr > 0.0, case_w,
+           pick((m00 > m11) & (m00 > m22), case_x,
+                pick(m11 > m22, case_y, case_z)))
+  q = torch.where(q[..., :1] < 0, -q, q)
+  return normalize(q)
+
+
+def quat_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """The rotation taking a to b: a^-1 * b."""
+  return mul_quat(neg_quat(a), b)
+
+
 def axis_angle_to_quat(axis: torch.Tensor, angle: torch.Tensor
                        ) -> torch.Tensor:
   """(unit axis (..., 3), angle (...)) -> quaternion (..., 4)."""
@@ -94,7 +128,7 @@ def quat_to_vel(q: torch.Tensor, dt: float = 1.0) -> torch.Tensor:
 def quat_diff_vel(a: torch.Tensor, b: torch.Tensor,
                   dt: float = 1.0) -> torch.Tensor:
   """Angular velocity that rotates a into b over dt."""
-  return quat_to_vel(mul_quat(neg_quat(a), b), dt)
+  return quat_to_vel(quat_diff(a, b), dt)
 
 
 def quat_integrate(q: torch.Tensor, omega: torch.Tensor,

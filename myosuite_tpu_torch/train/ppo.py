@@ -19,6 +19,10 @@ one joint global norm over the policy and value gradients, scaled by
 max_norm / norm only when norm > max_norm; Adam's mu_hat / (sqrt(nu_hat) +
 eps); and a non-finite gradient leaves params and Adam's state as they were
 unless it is the 101st in a row.
+
+On a mesh of ranks (`parallel.mesh`), `training_step(ts, mesh)` steps this
+rank's env rows, gathers the trajectory onto every rank with one
+all-reduce, and runs the single-rank learner on the gathered batch.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from torch.func import functional_call
 
 from myosuite_tpu_torch.envs.base import State
 from myosuite_tpu_torch.envs.wrappers import AutoResetWrapper
+from myosuite_tpu_torch.parallel import mesh as mesh_mod
 from myosuite_tpu_torch.train import networks, running_stats
 
 Params = Dict[str, torch.Tensor]
@@ -94,6 +99,10 @@ class TrainState:
   env_state: State
   generator: torch.Generator
   env_steps: int
+  # on a mesh, this rank's own stream for the rollout's action noise
+  # (`mesh.place`); `generator` then draws only the replicated
+  # permutations. None: the rollout draws from `generator`.
+  rollout_generator: Optional[torch.Generator] = None
 
   def replace(self, **kw) -> "TrainState":
     return dataclasses.replace(self, **kw)
@@ -305,17 +314,32 @@ class PPO:
 
   # -- rollout ------------------------------------------------------------
   def _rollout(self, ts: TrainState) -> Tuple[TrainState, Transition]:
-    """`unroll_length` env steps under the behaviour policy."""
+    """`unroll_length` env steps under the behaviour policy, then the
+    observation statistics updated from them."""
+    ts, traj = self._unroll(ts)
+    return self._update_stats(ts, traj), traj
+
+  def _update_stats(self, ts: TrainState, traj: Transition) -> TrainState:
+    if not self.cfg.normalize_observations:
+      return ts
+    return ts.replace(obs_stats=running_stats.update(ts.obs_stats,
+                                                     traj.obs))
+
+  def _unroll(self, ts: TrainState) -> Tuple[TrainState, Transition]:
+    """`unroll_length` env steps under the behaviour policy, its noise
+    drawn from ts.rollout_generator (ts.generator if None); env_steps
+    counts the global batch, cfg.num_envs."""
     cfg = self.cfg
-    check_generator(ts.generator, self.device)
+    gen = (ts.generator if ts.rollout_generator is None
+           else ts.rollout_generator)
+    check_generator(gen, self.device)
     env_state, steps = ts.env_state, []
     with torch.no_grad():
       for _ in range(cfg.unroll_length):
         obs = env_state.obs["state"]
         mean, log_std = self.apply_policy(
             ts.policy_params, self._norm_obs(ts.obs_stats, obs))
-        action, raw, logp = networks.sample_action_raw(mean, log_std,
-                                                       ts.generator)
+        action, raw, logp = networks.sample_action_raw(mean, log_std, gen)
         env_state = self.env.step(env_state, action)
         trunc = env_state.info["truncation"]
         steps.append(Transition(
@@ -324,24 +348,47 @@ class PPO:
             done=env_state.done * (1.0 - trunc), truncation=trunc,
             terminal_obs=env_state.info["terminal_obs"]))
     traj = Transition(*[torch.stack(x) for x in zip(*steps)])
-    stats = ts.obs_stats
-    if cfg.normalize_observations:
-      stats = running_stats.update(stats, traj.obs)
-    return ts.replace(env_state=env_state, obs_stats=stats,
-                      env_steps=ts.env_steps
+    return ts.replace(env_state=env_state, env_steps=ts.env_steps
                       + cfg.unroll_length * cfg.num_envs), traj
 
+  @staticmethod
+  def _gather(traj: Transition, last_obs: torch.Tensor,
+              episode_return: torch.Tensor, mesh) -> Tuple[
+                  Transition, torch.Tensor, torch.Tensor]:
+    """Every rank's trajectory, last observation and returned episode
+    returns, assembled in env order on every rank by one collective: each
+    env's values packed into one row. The tanh action is not sent (the
+    learner reads the raw one); it is recomputed from it, bit for bit."""
+    names = [k for k in Transition._fields if k != "action"]
+    fields = [getattr(traj, k) for k in names]
+    t, b = traj.reward.shape
+    cols = [x.transpose(0, 1).reshape(b, -1) for x in fields]
+    cols += [last_obs, episode_return[:, None]]
+    widths = [c.shape[1] for c in cols]
+    rows = mesh_mod.gather_env_rows(torch.cat(cols, 1), mesh)
+    parts = torch.split(rows, widths, 1)
+    n = rows.shape[0]
+    out = {k: p.reshape((n, t) + x.shape[2:]).transpose(0, 1).contiguous()
+           for k, p, x in zip(names, parts, fields)}
+    out["action"] = torch.tanh(out["raw_action"])
+    return (Transition(**out), parts[-2].contiguous(),
+            parts[-1].reshape(n).contiguous())
+
   # -- advantage ----------------------------------------------------------
-  def _gae(self, ts: TrainState, traj: Transition, stats):
-    """(advantages, returns), each (T, B)."""
+  def _gae(self, ts: TrainState, traj: Transition, stats,
+           last_obs: Optional[torch.Tensor] = None):
+    """(advantages, returns), each (T, B); the bootstrap value is that of
+    `last_obs` (default: the observation of ts.env_state)."""
     cfg = self.cfg
+    if last_obs is None:
+      last_obs = ts.env_state.obs["state"]
     with torch.no_grad():
       vf = lambda obs: self.apply_value(ts.value_params,
                                         self._norm_obs(stats, obs))
       values = vf(traj.obs)
       # bootstrap: value of the state the env reached (before any reset)
       term_values = vf(traj.terminal_obs)
-      value_next = vf(ts.env_state.obs["state"])
+      value_next = vf(last_obs)
       gae = torch.zeros_like(value_next)
       advs = [None] * traj.reward.shape[0]
       for t in reversed(range(len(advs))):
@@ -386,12 +433,14 @@ class PPO:
                    "entropy": entropy}
 
   def _update_epoch(self, ts: TrainState, traj: Transition, stats,
-                    perms: Optional[Sequence[torch.Tensor]] = None):
+                    perms: Optional[Sequence[torch.Tensor]] = None,
+                    last_obs: Optional[torch.Tensor] = None):
     """`num_updates_per_batch` passes of `num_minibatches` optimizer steps
     over the shuffled trajectory. `perms`, if given, are the passes'
-    permutations (else drawn from ts.generator). Returns (ts, mean aux)."""
+    permutations (else drawn from ts.generator); `last_obs` as in `_gae`.
+    Returns (ts, mean aux)."""
     cfg = self.cfg
-    advs, rets = self._gae(ts, traj, stats)
+    advs, rets = self._gae(ts, traj, stats, last_obs)
     t, b = traj.reward.shape
     n = t * b
     flat = lambda x: x.reshape((n,) + x.shape[2:])
@@ -426,20 +475,27 @@ class PPO:
         {k: v.detach() for k, v in aux.items()}
 
   # -- public API ---------------------------------------------------------
-  def training_step(self, ts: TrainState):
-    """One rollout and one PPO update; (ts, metrics as device tensors)."""
+  def training_step(self, ts: TrainState, mesh=None):
+    """One rollout and one PPO update; (ts, metrics as device tensors).
+    With a `mesh` (and a TrainState from `mesh.place`) the rollout is this
+    rank's env rows and the update, the statistics and the metrics are
+    those of the gathered global batch, the same on every rank."""
     # old_logp was computed under the behaviour-time normalizer, so the
     # update renormalizes the stored obs with those same stats (else the
     # ratio measures the normalizer's shift, not the policy's); the freshly
     # updated stats apply from the next rollout
     behavior_stats = ts.obs_stats
-    ts, traj = self._rollout(ts)
-    ts, aux = self._update_epoch(ts, traj, behavior_stats)
+    ts, traj = self._unroll(ts)
+    last_obs = ts.env_state.obs["state"]
+    returns = ts.env_state.info["returned_episode_return"]
+    if mesh is not None:
+      traj, last_obs, returns = self._gather(traj, last_obs, returns, mesh)
+    ts = self._update_stats(ts, traj)
+    ts, aux = self._update_epoch(ts, traj, behavior_stats, last_obs=last_obs)
     metrics = {
         **aux,
         "reward_per_step": traj.reward.mean(),
-        "episode_return":
-            ts.env_state.info["returned_episode_return"].mean(),
+        "episode_return": returns.mean(),
     }
     return ts, metrics
 

@@ -3,7 +3,8 @@
 The statistics of the JAX package's `running_stats`: count starts at 1e-4,
 a batch is merged with Chan's parallel update, and `normalize` clips to +-5
 with an identity std while count <= 1 (so the first rollout's obs are not
-blown up by a near-zero m2).
+blown up by a near-zero m2). With a process `group`, `update` merges every
+rank's batch, as the JAX package's `axis_name` path does with psum.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 
 @dataclasses.dataclass
@@ -34,12 +36,23 @@ def init(dim: int, device=None) -> RunningStats:
       m2=torch.zeros(dim, dtype=torch.float32, device=device))
 
 
-def update(stats: RunningStats, batch: torch.Tensor) -> RunningStats:
-  """Merge a (..., dim) batch."""
+def update(stats: RunningStats, batch: torch.Tensor,
+           group=None) -> RunningStats:
+  """Merge a (..., dim) batch; with a process `group`, the batches of all
+  its ranks: the global count and mean by one all-reduce, then the
+  spread around the global mean by a second."""
   flat = batch.reshape(-1, batch.shape[-1])
   n = float(flat.shape[0])
   bmean = flat.mean(0)
   bm2 = ((flat - bmean) ** 2).sum(0)
+  if group is not None:
+    tot = torch.cat([bmean * n, bmean.new_tensor([n])])
+    dist.all_reduce(tot, group=group)
+    nd = tot[-1]
+    gmean = tot[:-1] / nd
+    bm2 = bm2 + n * (bmean - gmean) ** 2
+    dist.all_reduce(bm2, group=group)
+    bmean, n = gmean, nd
   delta = bmean - stats.mean
   count = stats.count + n
   mean = stats.mean + delta * n / count

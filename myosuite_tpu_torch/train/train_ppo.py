@@ -5,9 +5,17 @@ The JAX package's launcher with the same flags and output lines, plus
 given). The "[jit Ns]" line reports the first iteration's time, which on
 the card includes building the CUDA kernel.
 
+With --mesh the env batch is split over the ranks of a process group
+(`parallel.mesh`): --num_envs is the global batch and must divide by the
+world size; rank 0 alone prints and writes --ckpt, as a learner-only
+checkpoint (the env state lives in pieces on the ranks). Without a group
+in the environment --mesh trains at world size 1.
+
 Usage:
   python -m myosuite_tpu_torch.train.train_ppo -e MtxHandReachRandom-v0 \\
       --num_timesteps 5000000 --num_envs 4096 [--ckpt DIR]
+  torchrun --nproc_per_node=N -m myosuite_tpu_torch.train.train_ppo --mesh \\
+      -e MtxHandReachRandom-v0 --num_envs 4096
 """
 
 from __future__ import annotations
@@ -31,19 +39,34 @@ def main(argv=None):
   parser.add_argument("--mesh", action="store_true",
                       help="shard env axis over all devices")
   parser.add_argument("--device", default="cuda",
-                      help="torch device to train on (default cuda)")
+                      help="torch device to train on (default cuda; with "
+                      "--mesh, cuda is each rank's card cuda:$LOCAL_RANK)")
+  parser.add_argument("--init_method", default=None,
+                      help="--mesh rendezvous URL (default env://, which "
+                      "torchrun fills in)")
   args = parser.parse_args(argv)
-  if args.mesh:
-    raise NotImplementedError("--mesh: the port does not shard the env "
-                              "axis over devices yet")
 
   import torch
+  import torch.distributed as dist
 
   import myosuite_tpu_torch
+  from myosuite_tpu_torch.parallel import mesh as mesh_mod
   from myosuite_tpu_torch.train import checkpoint
   from myosuite_tpu_torch.train import ppo as ppo_mod
 
-  env = myosuite_tpu_torch.make(args.env_name, device=args.device)
+  mesh = None
+  joined = dist.is_initialized()     # a group of the caller's is kept
+  if args.mesh:
+    mesh_mod.initialize_distributed(init_method=args.init_method,
+                                    device=args.device)
+    mesh = mesh_mod.make_mesh(args.device)
+    mesh_mod.local_env_slice(mesh, args.num_envs)   # raises if uneven
+    if mesh.group is None:
+      mesh = None        # no group: the single-rank path
+  rank0 = mesh is None or mesh.rank == 0
+  device = args.device if mesh is None else mesh.device
+
+  env = myosuite_tpu_torch.make(args.env_name, device=device)
   cfg = ppo_mod.default_config()
   cfg.num_timesteps = args.num_timesteps
   cfg.num_envs = args.num_envs
@@ -57,10 +80,18 @@ def main(argv=None):
   ts = ppo.init(torch.Generator(device=env.device).manual_seed(cfg.seed))
   steps_per_call = max(1, cfg.num_timesteps // (
       cfg.num_evals * cfg.unroll_length * cfg.num_envs))
-  train_fn = ppo.make_training_fn(steps_per_call)
+  if mesh is None:
+    train_fn = ppo.make_training_fn(steps_per_call)
+  else:
+    ts = mesh_mod.place(ts, ppo, mesh)
+    train_fn = mesh_mod.make_distributed_training_fn(ppo, ts, mesh,
+                                                     steps_per_call)
+  say = (lambda line: print(line, flush=True)) if rank0 else (
+      lambda line: None)
 
-  print(f"training {args.env_name}: {cfg.num_timesteps:,} steps, "
-        f"{cfg.num_envs} envs, 1 device(s)", flush=True)
+  say(f"training {args.env_name}: {cfg.num_timesteps:,} steps, "
+      f"{cfg.num_envs} envs, {1 if mesh is None else mesh.world_size} "
+      "device(s)")
   t0 = time.time()
   compile_done = None
   for it in range(cfg.num_evals):
@@ -68,17 +99,20 @@ def main(argv=None):
     m = {k: float(v) for k, v in metrics.items()}   # waits for the device
     if compile_done is None:
       compile_done = time.time()
-      print(f"[jit {compile_done - t0:.0f}s]", flush=True)
+      say(f"[jit {compile_done - t0:.0f}s]")
     sps = ts.env_steps / max(time.time() - compile_done, 1e-9)
-    print(f"steps={ts.env_steps:,} ep_return={m['episode_return']:.2f} "
-          f"reward/step={m['reward_per_step']:.3f} "
-          f"entropy={m['entropy']:.2f} ({sps:,.0f} steps/s)", flush=True)
-    if args.ckpt:
-      checkpoint.save(args.ckpt, ts, step=ts.env_steps)
+    say(f"steps={ts.env_steps:,} ep_return={m['episode_return']:.2f} "
+        f"reward/step={m['reward_per_step']:.3f} "
+        f"entropy={m['entropy']:.2f} ({sps:,.0f} steps/s)")
+    if args.ckpt and rank0:
+      checkpoint.save(args.ckpt, ts, step=ts.env_steps,
+                      learner_only=mesh is not None)
 
   wall = time.time() - t0
-  print(json.dumps({"env": args.env_name, "steps": ts.env_steps,
-                    "wall_clock_s": round(wall, 1)}), flush=True)
+  say(json.dumps({"env": args.env_name, "steps": ts.env_steps,
+                  "wall_clock_s": round(wall, 1)}))
+  if mesh is not None and not joined:
+    dist.destroy_process_group()
 
 
 if __name__ == "__main__":

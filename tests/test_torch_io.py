@@ -89,6 +89,7 @@ import sys
 sys.modules["jax"] = None
 sys.modules["mujoco"] = None
 sys.modules["gymnasium"] = None
+sys.modules["h5py"] = None
 import torch
 import myosuite_tpu_torch
 from myosuite_tpu_torch.physics import forward, newton_kernel, solver
@@ -139,10 +140,21 @@ cfg.value_batches, cfg.policy_hidden, cfg.value_hidden = 1, (8,), (8,)
 trainer = npg.NPG(elbow, cfg)
 ts, metrics = trainer.training_step(trainer.init(torch.Generator()))
 assert all(torch.isfinite(v) for v in metrics.values())
+from myosuite_tpu_torch.parallel import mesh
+from myosuite_tpu_torch.robot import robot
+from myosuite_tpu_torch.utils import (curriculum, examine_env,
+                                      inverse_kinematics, quat_math,
+                                      trajectories, vector_math)
+from myosuite_tpu_torch.logger import examine_logs, roboset, trace
+from myosuite_tpu_torch import native
+ik = inverse_kinematics.qpos_from_site_pose(
+    elbow.model, elbow.reset(torch.Generator().manual_seed(0), 2).data, 0,
+    torch.zeros(2, 3), max_steps=2)
+assert ik.steps.tolist() == [2, 2]
 bad = [k for k in sys.modules
        if k.split(".")[0] in ("myosuite_tpu", "jax", "flax", "mujoco",
                               "ml_collections", "optax", "orbax",
-                              "gymnasium")
+                              "gymnasium", "h5py")
        and sys.modules[k] is not None]
 assert not bad, bad
 print("ok")
@@ -155,8 +167,9 @@ def test_port_imports_no_jax_and_no_myosuite_tpu():
   torso, the Reaf hand, SAR's Reorient8 and ElbowPoseExoRandom (per-env
   models) and a MyoDM id, takes a PPO training step on the finger,
   restores the committed elbow policy, takes one SAC and one NPG step at a
-  tiny config on the elbow, and loads no module of the JAX package, flax,
-  optax, orbax or gymnasium."""
+  tiny config on the elbow, imports the mesh, robot, utils, logger and
+  native modules and runs two IK iterations, and loads no module of the
+  JAX package, flax, optax, orbax, gymnasium or h5py."""
   proc = subprocess.run([sys.executable, "-c", _ISOLATION], cwd=_REPO,
                         capture_output=True, text=True, timeout=300)
   assert proc.returncode == 0, proc.stderr

@@ -437,19 +437,30 @@ def test_generator_of_another_device_raises():
     ppo.training_step(ts)
 
 
-def test_train_ppo_cli_on_the_cpu(tmp_path):
+def test_train_ppo_cli_on_the_cpu(tmp_path, monkeypatch):
   """train_ppo.main with --device cpu: 2 iterations of the elbow with 8
-  envs, a checkpoint per iteration and the closing JSON line."""
-  out = io.StringIO()
-  with redirect_stdout(out):
-    train_ppo.main(["-e", "MtxElbowPoseRandom-v0", "--num_timesteps", "160",
-                    "--num_envs", "8", "--num_minibatches", "4",
-                    "--num_evals", "2", "--device", "cpu",
-                    "--ckpt", str(tmp_path)])
-  lines = out.getvalue().strip().splitlines()
-  assert lines[0].startswith("training MtxElbowPoseRandom-v0: 160 steps")
-  assert sum(line.startswith("steps=") for line in lines) == 2
-  assert json.loads(lines[-1])["steps"] == 160
-  assert checkpoint.latest_step_dir(str(tmp_path)).endswith("step_160")
-  with pytest.raises(NotImplementedError):
-    train_ppo.main(["--mesh", "--device", "cpu"])
+  envs, a checkpoint per iteration and the closing JSON line. With --mesh
+  and no process group in the environment it trains the same run at world
+  size 1 (tests/test_torch_mesh.py runs it over ranks)."""
+  for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR"):
+    monkeypatch.delenv(var, raising=False)
+  flags = ["-e", "MtxElbowPoseRandom-v0", "--num_timesteps", "160",
+           "--num_envs", "8", "--num_minibatches", "4", "--num_evals", "2",
+           "--device", "cpu"]
+  runs = {}
+  for mesh in ([], ["--mesh"]):
+    out = io.StringIO()
+    ckpt = tmp_path / ("mesh" if mesh else "plain")
+    with redirect_stdout(out):
+      train_ppo.main(flags + mesh + ["--ckpt", str(ckpt)])
+    lines = out.getvalue().strip().splitlines()
+    assert lines[0].startswith("training MtxElbowPoseRandom-v0: 160 steps")
+    assert lines[0].endswith("8 envs, 1 device(s)")
+    assert sum(line.startswith("steps=") for line in lines) == 2
+    assert json.loads(lines[-1])["steps"] == 160
+    path = checkpoint.latest_step_dir(str(ckpt))
+    assert path.endswith("step_160")
+    runs[bool(mesh)] = torch.load(f"{path}/{checkpoint.FILE}",
+                                  weights_only=True)
+  for k, v in runs[False]["policy_params"].items():
+    assert torch.equal(runs[True]["policy_params"][k], v), k
