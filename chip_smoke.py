@@ -26,17 +26,17 @@ MtxFatiHandReachRandom-v0 and the myobase golden replays. Phase 10
 drives per-env models, tracking and MyoDM at batch 4096: the elbow with a
 payload and an exo torque, SAR's Reorient100 (a capsule per env), the
 hand's and finger's cyclic tracks and one MyoDM id per object class
-(sphere, box hull, cylinder hull, capsule) plus a Random object target (4
+(sphere, box hull, cylinder hull, capsule) plus a Random object target (2
 timed control steps each, the kernel against its plain version at each
 env's own per-env inputs), Reorient100 against PenTwirl in pairs of turns,
 the tracking golden replays, the per-env model check (two geometries in
-one batch against batch-1 runs, the first substep's solve taken apart in
-float32 and float64) and one timed PPO training step on
+one batch, each env bit-equal to a batch-1 run) and one timed PPO
+training step on
 MtxHandReorient100-v0, then phase 10's seconds by part. Phase 11 drives
 the seven MyoChallenge ids at batch 4096: ChaseTag (chase and evade) with
 its scripted opponent on a patch arena, Soccer with its goalkeeper,
 RunTrack with the OSL controller, Relocate (a per-env object), Bimanual
-and TableTennis (4 timed control steps each, the kernel against its plain
+and TableTennis (2 timed control steps each, the kernel against its plain
 version at each env's own inputs), the OSL's phases, ChaseTag and Soccer
 through the auto-reset (a done env's opponent or keeper fresh), the
 challenge golden replays and one timed PPO training step on
@@ -48,17 +48,22 @@ the five shipped pretrained policies restored from their .pt files in
 deterministic evals at batch 4096 against the JAX package's own eval
 (assets/pretrained_golden.npz), the closed-loop goldens of the elbow and
 the stand, the kernel against its plain version at the trained stand
-policy's states, and the reflex controller's 150-step rollout of the walk
+policy's states, and the reflex controller's 50-step rollout of the walk
 (its stimulations against the CPU controller's). Phase 13 drives the
 scale-out and the user tools: a distributed PPO training step of the hand
 over NCCL at world size 1 (bit-equal to the plain rollout and update fed
 copies of the rank's generators), two gloo ranks on the one card with 2048
 envs each (bit-identical learners, each bit-equal to the single-rank update
-of the gathered trajectory), C5 at the shard size (a control step of 2048
-rows against the same rows of 4096, printed), the robot layer and inverse
-kinematics at batch 4096 against the CPU, a 4096-env rollout through the
-native trace sink and examine_env on the shipped elbow policy. Prints one
-JSON line of
+of the gathered trajectory), the robot layer and inverse kinematics at
+batch 4096 against the CPU, a 4096-env rollout through the native trace
+sink and examine_env on the shipped elbow policy. Phase 14 drives C5 and
+the renderer: the C5 gate (sub-batches of the hand and of Reorient100
+stepped alone, bit-equal to their rows of the batch), the hand's 4096
+envs drawn (rgb, depth, segmentation at 64 x 64) after 20 Newton
+launches, those frames and the rough leg's and the die's against the CPU
+port's, a row drawn alone against its row, VisualObs's ResNet-18
+features against the CPU and the rendering tools. Prints one JSON line
+of
 kernel numbers (with a `shapes` list per env and (nv, nefc)) and, last,
 {"ok": true, "device": {...}}. Exits non-zero, with no result line,
 when any phase fails or when there is no CUDA card.
@@ -68,7 +73,9 @@ when any phase fails or when there is no CUDA card.
 also times the Newton kernel of another checkout DIR (one whose wrapper has
 the same C interface) against this one in turns (DIR, this, this, DIR):
 per launch, and per control step of the main path with DIR's kernel
-swapped in, and prints DIR's phase split.
+swapped in, and prints DIR's phase split; phase 14 then also times DIR's
+bare hand control step, and counts its launches per substep, against
+this checkout's in turns, each in a process of its own.
 """
 
 import argparse
@@ -120,7 +127,7 @@ MYOBASE_GOLDEN = {
     "sarc": ("MtxSarcHandReachFixed-v0", None, False),
     "reaf": ("MtxReafHandPoseRandom-v0", {"reset_type": "none"}, True),
     "fati": ("MtxFatiHandReachFixed-v0", None, False)}
-TRACK_STEPS = 4          # control steps of each env of phase 10
+TRACK_STEPS = 2          # control steps of each env of phase 10
 SAR_PAIRS = 2            # phase 10: pairs of PenTwirl / Reorient100 turns
 SAR_TURN_STEPS = 3       # control steps a turn
 # phase 10: per-env models, tracking and MyoDM at batch 4096 (tag, id)
@@ -138,7 +145,7 @@ TRACKING = (("exo", "MtxElbowPoseExoRandom-v0"),
 # supplied before each step are stored as "<tag>_info_<key>"
 TRACKING_GOLDEN = {tag: (name, {"reset_type": "none"} if tag == "exo"
                          else None) for tag, name in TRACKING}
-CHAL_STEPS = 4           # control steps of each env of phase 11
+CHAL_STEPS = 2           # control steps of each env of phase 11
 RESET_STEPS = 2          # phase 11: control steps through the auto-reset
 # phase 11: the MyoChallenge envs at batch 4096 (tag, id); the tags are
 # tests/test_torch_challenge.py::IDS's, which wrote the golden file
@@ -1016,78 +1023,13 @@ def _env_row(d, i):
   return type(d)(**out)
 
 
-# per_env_model_check: how far each field of a batch-1 run may lie from its
-# row of the batch after one substep, as a share of max(1, the field's
-# largest magnitude). qM and the contact distances come before the solve;
-# the rest after it, where the card measured qpos 9.4e-6 of 1.245, qvel
-# 7.43e-3 of 1.372, qacc 5.80 of 760.8 and efc_force 1.84e-3 of 6.365
-# (ROADMAP C5)
-BATCH1_REL = {"qM": 1e-5, "dist": 1e-5, "qpos": 1.5e-5, "qvel": 1e-2,
-              "qacc": 1.5e-2, "efc_force": 5e-4}
-SOLVER_ARGS = ("qM", "J", "aref", "R", "floss", "active", "warm",
-               "qfrc_smooth", "damph")
-
-
-def moved_iterations(args, kw):
-  """Which Newton iterations moved qacc, per env of one set of solver
-  inputs: the plain version run with 0, 1, ..., kw["iterations"]
-  iterations, each run a prefix of the next (no iteration count depends on
-  the data and no solve exits early); a list per env of 0/1."""
-  from myosuite_tpu_torch.physics import newton_kernel as nk
-  runs = [nk.newton_solve_reference(*args, **dict(kw, iterations=k))[0]
-          for k in range(kw["iterations"] + 1)]
-  moved = torch.stack([(b != a).any(-1) for a, b in zip(runs, runs[1:])], 1)
-  return moved.int().tolist()
-
-
-def batch1_solver_gap(env, idx, d, i):
-  """Env i's first-substep solver inputs as its row of the batch and as a
-  batch-1 run, each solved in float32 (the kernel) and float64 (the plain
-  version); prints the inputs' gap, the two solutions' gaps, float32's own
-  distance from float64 and which iterations moved qacc in each run.
-  Raises unless the float64 solves agree to 1e-6 of qacc's scale (the
-  inputs differ by rounding only)."""
-  from myosuite_tpu_torch.physics import forward
-  from myosuite_tpu_torch.physics import newton_kernel as nk
-  row, kw = forward.solve_inputs(env._model_for_step({"geom_idx": idx}), d)
-  row = [a[i:i + 1] for a in row]
-  one, _ = forward.solve_inputs(
-      env._model_for_step({"geom_idx": idx[i:i + 1]}), _env_row(d, i))
-  gaps = {n: float((a.double() - b.double()).abs().max())
-          for n, a, b in zip(SOLVER_ARGS, row, one)}
-  f32 = [nk.newton_solve(*x, **kw)[0] for x in (row, one)]
-  f64 = [nk.newton_solve_reference(*[a.double() for a in x], **kw)[0]
-         for x in (row, one)]
-  gap32 = float((f32[0] - f32[1]).abs().max())
-  gap64 = float((f64[0] - f64[1]).abs().max())
-  own = float((f32[0].double() - f64[0]).abs().max())
-  paths = [moved_iterations(x, kw)[0] for x in (
-      row, one, [a.double() for a in row], [a.double() for a in one])]
-  print(f"    env {i} solver inputs, row against batch-1 run: "
-        + ", ".join(f"{n} {g:.2e}" for n, g in gaps.items()))
-  scale = max(1.0, float(f64[0].abs().max()))
-  print(f"      qacc of the two solves (scale {scale:.1f}): {gap32:.3e} "
-        f"apart in float32, "
-        f"{gap64:.3e} in float64; float32 off float64 on the row's inputs "
-        f"by {own:.3e}; {kw['iterations']} Newton iterations of "
-        f"{kw['ls_iterations']} line-search steps in every run; iterations "
-        f"that moved qacc, float32 row {paths[0]}, batch-1 {paths[1]}, "
-        f"float64 row {paths[2]}, batch-1 {paths[3]}")
-  if not gap64 <= 1e-6 * scale:
-    raise AssertionError(f"per-env model: env {i}'s row and batch-1 run "
-                         f"solve {gap64} apart in float64")
-
-
 def per_env_model_check(dev):
   """Reorient100 with two geometry rows in one batch, one substep from
   the reset: the two envs' qM and contact distances differ; each env's
   whole substep equals, bit for bit, its row of the same batch stepped
-  with its own geometry in both envs; and each env lies within BATCH1_REL
-  of a batch-1 run of its geometry. Where the batch-1 run is not
-  bit-equal, the first substep's solve is taken apart
-  (`batch1_solver_gap`: on the card the float32 accept test of the
-  batch-1 run rejects a step that the row's takes, ROADMAP C5). Raises on
-  a miss."""
+  with its own geometry in both envs; and each env is bit-equal to a
+  batch-1 run of its geometry (C5, repaired: phase 14a's gate names the
+  op at fault). Raises on a miss."""
   import myosuite_tpu_torch
   from myosuite_tpu_torch.physics import forward
   env = myosuite_tpu_torch.make("MtxHandReorient100-v0")
@@ -1123,14 +1065,11 @@ def per_env_model_check(dev):
       gap = float((both[k][i:i + 1] - v).abs().max())
       scale = max(1.0, float(v.abs().max()))
       gaps.append(f"{k} {gap:.3e} of {scale:.3e}")
-      if not gap <= BATCH1_REL[k] * scale:
-        raise AssertionError(f"per-env model: env {i} {k} is {gap} off its "
-                             f"batch-1 run (limit {BATCH1_REL[k]} of "
-                             f"{scale})")
     print(f"    env {i}: bit-equal to its row of a batch with its geometry "
           f"in both envs; off its batch-1 run by " + ", ".join(gaps))
     if any(not torch.equal(both[k][i:i + 1], v) for k, v in one.items()):
-      batch1_solver_gap(env, idx, d, i)
+      raise AssertionError(f"per-env model: env {i} is not bit-equal to its "
+                           f"batch-1 run (C5)")
 
 
 def tracking_phase(dev, build, phase_lib):
@@ -1448,7 +1387,7 @@ def challenge_phase(dev, build, phase_lib):
 SAC_EPOCHS = 2           # phase 12: timed SAC epochs past learning_starts
 NPG_ITERS = 1            # phase 12: timed NPG iterations after a warm-up
 EVAL_HORIZON = 100       # phase 12: control steps of each pretrained eval
-REFLEX_STEPS = 150       # phase 12: control steps of the reflex rollout
+REFLEX_STEPS = 50        # phase 12: control steps of the reflex rollout
 KERNEL_AT_STEP = 50      # phase 12: the stand eval's step whose solve is
 #                          taken apart (kernel against its plain version)
 
@@ -2023,41 +1962,168 @@ def gloo_ranks_check(dev, build):
 C5_FIELDS = ("obs", "reward", "qpos", "qvel", "act", "qacc")
 
 
-def shard_c5_check(dev):
-  """13(c): one control step at batch BATCH and of each half (BATCH / 2
-  rows) from the same state and actions: per field bit-equal or its
-  largest gap. A measurement (ROADMAP C5), not a gate."""
+# 14(a): the C5 gate. Sub-batches of a BATCH-env state stepped alone: the
+# single rows 1, 7 and 2048, the 7 rows 1-7 and the 2048 rows 2048-4095
+C5_ROWS = ((1, 2), (7, 8), (2048, 2049), (1, 8), (2048, 4096))
+C5_STEPS = 2
+C5_ENVS = ("MtxHandReachRandom-v0", "MtxHandReorient100-v0")
+_RANDOM_OPS = ("rand", "normal", "bernoulli", "uniform", "multinomial",
+               "exponential", "randperm")
+
+
+def batch_variant_ops(env, state, action, sizes=(1, 7)):
+  """One control step of `state` (B envs) under a dispatch mode that runs
+  every floating-point op whose output leads with the env axis again on
+  the first n rows of its inputs that lead with it, for n in `sizes`:
+  {(op, the port's source line): n} of the ops whose rows differ from
+  their rows of the batch (an op whose arguments fix the batch size does
+  not run again). Finds what breaks C5."""
+  import traceback
+  from torch.utils._python_dispatch import TorchDispatchMode
+  from torch.utils._pytree import tree_flatten, tree_map
+  B = action.shape[0]
+  found = {}
+
+  def same(a, b):
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+  class RowCheck(TorchDispatchMode):
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+      kwargs = kwargs or {}
+      out = func(*args, **kwargs)
+      name = str(func)
+      leaves = [o for o in tree_flatten(out)[0]
+                if isinstance(o, torch.Tensor) and o.dim()
+                and o.dtype.is_floating_point and o.shape[0] == B]
+      if (not leaves or func._schema.is_mutable
+          or any(r in name for r in _RANDOM_OPS)):
+        return out
+      for n in sizes:
+        cut = lambda x: (x[:n] if isinstance(x, torch.Tensor) and x.dim()
+                         and x.shape[0] == B else x)
+        try:
+          sub = func(*tree_map(cut, args), **tree_map(cut, kwargs))
+        except Exception:
+          return out
+        subs = [o for o in tree_flatten(sub)[0]
+                if isinstance(o, torch.Tensor) and o.dim()
+                and o.dtype.is_floating_point]
+        if len(subs) != len(leaves) or any(
+            a.shape != cut(b).shape for a, b in zip(subs, leaves)):
+          return out
+        if not all(same(a, cut(b)) for a, b in zip(subs, leaves)):
+          where = [f"{os.path.relpath(f.filename)}:{f.lineno}"
+                   for f in traceback.extract_stack()
+                   if "myosuite_tpu_torch" in f.filename]
+          found.setdefault((name, where[-1] if where else "?"), n)
+          break
+      return out
+
+  with RowCheck():
+    env.step(state, action)
+  return found
+
+
+BARE_STEP = r"""
+import importlib.util, json, sys, torch
+sys.path.insert(0, sys.argv[1])
+spec = importlib.util.spec_from_file_location("smoke", sys.argv[2])
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+print(json.dumps(smoke.bare_hand_step(torch.device("cuda"))))
+"""
+
+
+def bare_hand_step(dev):
+  """The main path's bare control step at BATCH (after 2 warm-up steps):
+  ms per control step over STEPS and launches per substep (one profiled
+  step), for the checkout whose myosuite_tpu_torch is imported."""
+  import myosuite_tpu_torch
+  env = myosuite_tpu_torch.make("MtxHandReachRandom-v0", device=dev)
+  gen = torch.Generator(dev).manual_seed(0)
+  state = env.reset(gen, BATCH)
+  _, state = control_steps(env, state, gen, 2)
+  ms, state = control_steps(env, state, gen, STEPS)
+  action = torch.rand(BATCH, env.action_size, generator=gen, device=dev)
+  _, _, launches, _ = profile_call(lambda: env.step(state, action))
+  return dict(ms=ms, launches_per_substep=launches / env._n_substeps)
+
+
+def bare_step_turns(parent):
+  """The bare control step of the checkout `parent` and of this one, each
+  in a process of its own, in turns (parent, this, this, parent)."""
+  here = os.path.dirname(os.path.abspath(__file__))
+  out = []
+  for tag, root in (("parent", parent), ("this", here), ("this", here),
+                    ("parent", parent)):
+    run = subprocess.run([sys.executable, "-c", BARE_STEP,
+                          os.path.abspath(root), os.path.abspath(__file__)],
+                         capture_output=True, text=True, cwd=root,
+                         timeout=MESH_TIMEOUT)
+    if run.returncode:
+      raise AssertionError(f"bare step of {tag}: {run.stderr[-2000:]}")
+    res = json.loads(run.stdout.strip().splitlines()[-1])
+    out.append((tag, res))
+    print(f"  14a bare hand control step at {BATCH}, {tag}: "
+          f"{res['ms']:.2f} ms, {res['launches_per_substep']:.0f} launches "
+          f"per substep")
+  return out
+
+
+def c5_gate(dev):
+  """14(a): C5_STEPS control steps of each C5_ENVS env at BATCH and of
+  each C5_ROWS sub-batch (its rows of the same reset and actions): every
+  C5_FIELDS field bit-equal to its rows of the full batch. A row that
+  reaches an episode boundary (done or truncation) in those steps gets a
+  fresh draw of its task randomization (Reorient100's object and goal)
+  from the batch's one generator, which a sub-batch draws anew, so such
+  rows are left out and counted; a single row that does is replaced by
+  the next row that does not. On a miss, prints the ops whose rows differ
+  (`batch_variant_ops`) and raises."""
   import myosuite_tpu_torch
   from myosuite_tpu_torch.parallel.mesh import take_rows
-  out = {}
-  half = BATCH // 2
-  for name in ("MtxHandReachRandom-v0", "MtxHandReorient100-v0"):
+  pick = lambda s: (s.obs["state"], s.reward, s.data.qpos, s.data.qvel,
+                    s.data.act, s.data.qacc)
+  for name in C5_ENVS:
     env = myosuite_tpu_torch.make(name, device=dev)
     gen = torch.Generator(dev).manual_seed(5)
     state = env.reset(gen, BATCH)
-    state = env.step(state, torch.rand(BATCH, env.action_size, generator=gen,
-                                       device=dev))
-    action = torch.rand(BATCH, env.action_size, generator=gen, device=dev)
-    pick = lambda s: (s.obs["state"], s.reward, s.data.qpos, s.data.qvel,
-                      s.data.act, s.data.qacc)
-    full = pick(env.step(state, action))
-    parts = [pick(env.step(take_rows(state, slice(h * half, (h + 1) * half),
-                                     BATCH),
-                           action[h * half:(h + 1) * half]))
-             for h in range(2)]
-    report = {}
-    for i, k in enumerate(C5_FIELDS):
-      both = torch.cat([p[i] for p in parts])
-      gap = float((both.double() - full[i].double()).abs().max())
-      scale = float(full[i].abs().max())
-      report[k] = dict(bit_equal=bool(torch.equal(both, full[i])), gap=gap,
-                       scale=scale)
-    out[name] = report
-    print(f"  13c C5 at {half} rows, {name}: " + "; ".join(
-        f"{k} " + ("bit-equal" if v["bit_equal"] else
-                   f"{v['gap']:.3e} of {v['scale']:.3e}")
-        for k, v in report.items()))
-  return out
+    actions = [torch.rand(BATCH, env.action_size, generator=gen, device=dev)
+               for _ in range(C5_STEPS)]
+    full = state
+    redrawn = torch.zeros(BATCH, dtype=torch.bool, device=dev)
+    for a in actions:
+      full = env.step(full, a)
+      redrawn |= (full.done != 0) | (full.info["truncation"] != 0)
+    full = pick(full)
+    clean = (~redrawn).nonzero()[:, 0].tolist()
+    misses, notes = [], []
+    for lo, hi in C5_ROWS:
+      if hi - lo == 1:
+        lo = next(i for i in clean if i >= lo)
+        hi = lo + 1
+      part = take_rows(state, slice(lo, hi), BATCH)
+      for a in actions:
+        part = env.step(part, a[lo:hi])
+      keep = ~redrawn[lo:hi]
+      notes.append(f"{lo}-{hi - 1}" + (f" ({int((~keep).sum())} redrawn)"
+                                       if not bool(keep.all()) else ""))
+      for k, p, f in zip(C5_FIELDS, pick(part), full):
+        p, f = p[keep], f[lo:hi][keep]
+        if not torch.equal(p, f):
+          misses.append(f"rows {lo}-{hi - 1} {k} "
+                        f"{float((p.double() - f.double()).abs().max()):.3e}"
+                        f" of {float(f.abs().max()):.3e}")
+    print(f"  14a C5 gate, {name}: {C5_STEPS} control steps of the rows "
+          + ", ".join(notes) + f" alone against their rows of {BATCH} "
+          f"({int(redrawn.sum())} of {BATCH} envs redrawn at a boundary): "
+          + ("every field bit-equal" if not misses else "; ".join(misses)))
+    if misses:
+      for (op, where), n in batch_variant_ops(
+          env, state, actions[0]).items():
+        print(f"    batch-variant at {n} rows: {op} at {where}")
+      raise AssertionError(f"C5: {name} rows differ from their rows of the "
+                           f"batch")
 
 
 def robot_ik_check(dev):
@@ -2243,8 +2309,6 @@ def mesh_tools_phase(dev, build):
     nccl = nccl_step_check(dev, build)
   with watch.part("gloo ranks"):
     gloo = gloo_ranks_check(dev, build)
-  with watch.part("C5 at the shard size"):
-    c5 = shard_c5_check(dev)
   with watch.part("robot and IK"):
     tools = robot_ik_check(dev)
   with watch.part("sink"):
@@ -2252,8 +2316,234 @@ def mesh_tools_phase(dev, build):
   with watch.part("examine_env"):
     exam = examine_env_check(dev)
   watch.report("phase 13")
-  return dict(nccl=nccl, gloo=gloo, c5=c5, tools=tools, sink=sink,
+  return dict(nccl=nccl, gloo=gloo, tools=tools, sink=sink,
               examine_env=exam)
+
+
+RENDER_HW = (64, 64)      # phase 14: the frames' height and width
+RENDER_CPU_ROWS = 8      # phase 14: envs drawn again on the CPU
+RENDER_BATCH = 256       # phase 14: the rough leg's, the die's and VisualObs's
+RENDER_ROW = 5           # phase 14: the env drawn alone
+VISUAL_KEY = "rgb:default:224x224:resnet18"
+
+
+def _moved(x, dev):
+  """x with every tensor on `dev`, through dicts and dataclasses."""
+  import dataclasses
+  if isinstance(x, torch.Tensor):
+    return x.to(dev)
+  if isinstance(x, dict):
+    return {k: _moved(v, dev) for k, v in x.items()}
+  if dataclasses.is_dataclass(x) and not isinstance(x, type):
+    return dataclasses.replace(x, **{f.name: _moved(getattr(x, f.name), dev)
+                                     for f in dataclasses.fields(x)})
+  return x
+
+
+def _three(renderer, data):
+  """rgb, depth and segmentation of `data`."""
+  return (renderer.render(data), renderer.render(data, depth=True),
+          renderer.render(data, segmentation=True))
+
+
+def render_against_cpu(label, env_id, data, card):
+  """14(c): the first RENDER_CPU_ROWS envs of `data` drawn by the port on
+  the CPU against the card's frames `card` (rgb, depth, segmentation):
+  depth within 1e-5 relative, segmentation equal and rgb within 1 level
+  on at least 99.9% of pixels. Raises on a miss."""
+  import myosuite_tpu_torch
+  from myosuite_tpu_torch.parallel.mesh import take_rows
+  from myosuite_tpu_torch.renderer import Renderer
+  env = myosuite_tpu_torch.make(env_id, device="cpu")
+  rows = _moved(take_rows(data, slice(0, RENDER_CPU_ROWS), data.batch),
+                "cpu")
+  cpu = _three(Renderer(env, RENDER_HW[1], RENDER_HW[0]), rows)
+  rgb, depth, seg = [x[:RENDER_CPU_ROWS].cpu() for x in card]
+  dgap = float(((depth.double() - cpu[1].double()).abs()
+                / cpu[1].double().abs()).max())
+  seg_same = float((seg == cpu[2]).all(-1).double().mean())
+  rgb_near = float(((rgb.int() - cpu[0].int()).abs() <= 1).all(-1)
+                   .double().mean())
+  hit = float((cpu[2][..., 0] >= 0).double().mean())
+  print(f"  14c {label}: card against CPU on {RENDER_CPU_ROWS} envs "
+        f"({hit:.3f} of pixels hit a geom): depth {dgap:.3e} relative, "
+        f"segmentation equal on {seg_same:.5f}, rgb within 1 level on "
+        f"{rgb_near:.5f} of pixels")
+  if not (dgap <= 1e-5 and seg_same >= 0.999 and rgb_near >= 0.999):
+    raise AssertionError(f"renderer: {label} card and CPU differ")
+  return dict(depth_rel=dgap, seg_equal=seg_same, rgb_within_1=rgb_near)
+
+
+def render_numbers(label, renderer, data):
+  """ms per batch render of each output (CUDA events), launches of one
+  rgb render, peak memory of the three."""
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  frames = _three(renderer, data)
+  torch.cuda.synchronize()
+  peak = torch.cuda.max_memory_allocated() / 2 ** 20
+  ms = {k: cuda_ms(fn, 3) for k, fn in (
+      ("rgb", lambda: renderer.render(data)),
+      ("depth", lambda: renderer.render(data, depth=True)),
+      ("segmentation", lambda: renderer.render(data, segmentation=True)))}
+  busy, _, launches, _ = profile_call(lambda: renderer.render(data))
+  print(f"  14 {label}: {data.batch} envs at {RENDER_HW[0]} x "
+        f"{RENDER_HW[1]}: " + ", ".join(f"{k} {v:.2f} ms" for k, v in
+                                        ms.items())
+        + f" per batch render; {launches} launches, device busy "
+        f"{busy:.2f} ms of an rgb render; peak memory {peak:.0f} MiB")
+  return frames, dict(ms=ms, launches=launches, busy_ms=busy, peak_mib=peak)
+
+
+def render_phase(dev, build, parent=None):
+  """Phase 14: C5 and the renderer. (a) the C5 gate (with --parent, the
+  bare hand control step of the parent and of this checkout in turns);
+  (b) the hand at BATCH: 2 control steps (20 Newton launches), then rgb,
+  depth and segmentation of every env; (c) those frames against the CPU
+  port's, and the same for the rough leg and the die at RENDER_BATCH; (d)
+  env RENDER_ROW drawn alone bit-equal to its row; (e) VisualObs's
+  ResNet-18 features at RENDER_BATCH against the CPU; (f) GymEnv.render,
+  render_cams and examine_env's video frames (saved as .npy: the card has
+  no imageio); (g) the phase's seconds by part."""
+  import myosuite_tpu_torch
+  from myosuite_tpu_torch.parallel.mesh import take_rows
+  from myosuite_tpu_torch.physics import newton_kernel as nk
+  from myosuite_tpu_torch.renderer import Renderer
+  watch = Stopwatch()
+  out = {}
+  print("phase 14 C5 and the renderer")
+  with watch.part("C5 gate"):
+    c5_gate(dev)
+  if parent:
+    with watch.part("bare step turns"):
+      out["bare_step"] = bare_step_turns(parent)
+
+  with watch.part("hand"):
+    env = myosuite_tpu_torch.make("MtxHandReachRandom-v0", device=dev)
+    gen = torch.Generator(dev).manual_seed(0)
+    state = env.reset(gen, BATCH)
+    torch.cuda.synchronize()
+    nk.launches = 0
+    for _ in range(2):
+      state = env.step(state, torch.rand(BATCH, env.action_size,
+                                         generator=gen, device=dev))
+    torch.cuda.synchronize()
+    launches = nk.launches
+    print(f"  14b MtxHandReachRandom-v0 at {BATCH}: 2 control steps, "
+          f"{launches} Newton launches")
+    if launches != 2 * env._n_substeps:
+      raise AssertionError(f"phase 14: {launches} Newton launches, want "
+                           f"{2 * env._n_substeps}")
+    out["launches"] = launches
+    r = Renderer(env, RENDER_HW[1], RENDER_HW[0])
+    frames, out["hand"] = render_numbers("hand", r, state.data)
+    depth = frames[1]
+    if not bool(torch.isfinite(depth).all()) or not bool(
+        (frames[2][..., 0] >= 0).any()):
+      raise AssertionError("phase 14: the hand's frames are empty or "
+                           "not finite")
+  with watch.part("card against CPU"):
+    out["hand_cpu"] = render_against_cpu("hand", "MtxHandReachRandom-v0",
+                                         state.data, frames)
+  with watch.part("batch invariance"):
+    alone = _three(r, take_rows(state.data,
+                                slice(RENDER_ROW, RENDER_ROW + 1), BATCH))
+    same = [torch.equal(a[0], f[RENDER_ROW]) for a, f in zip(alone, frames)]
+    print(f"  14d env {RENDER_ROW} drawn alone against its row of {BATCH}: "
+          f"rgb, depth, segmentation bit-equal {same}")
+    if not all(same):
+      raise AssertionError("phase 14: a row drawn alone differs from its "
+                           "row of the batch")
+  del frames, depth, alone
+  for tag, env_id in (("rough leg", "MtxLegWalkRough-v0"),
+                      ("die", "MtxHandDieReorient-v0")):
+    with watch.part(tag):
+      e = myosuite_tpu_torch.make(env_id, device=dev)
+      g = torch.Generator(dev).manual_seed(0)
+      s = e.reset(g, RENDER_BATCH)
+      for _ in range(2):
+        s = e.step(s, torch.rand(RENDER_BATCH, e.action_size, generator=g,
+                                 device=dev))
+      f, out[tag] = render_numbers(tag, Renderer(e, RENDER_HW[1],
+                                                 RENDER_HW[0]), s.data)
+      out[tag + " cpu"] = render_against_cpu(tag, env_id, s.data, f)
+
+  with watch.part("VisualObs"):
+    out["visual"] = visual_check(dev)
+  with watch.part("tools"):
+    out["tools"] = render_tools_check(dev, build)
+  watch.report("phase 14")
+  return out
+
+
+def visual_check(dev):
+  """14(e): VISUAL_KEY at RENDER_BATCH envs of the hand: ms of the render
+  and of the encoder, features of RENDER_CPU_ROWS envs against the CPU
+  port's within 1e-3 of their scale, the TF32 flags."""
+  import warnings
+  import myosuite_tpu_torch
+  from myosuite_tpu_torch.envs.visual import VisualObs, parse_visual_key
+  warnings.simplefilter("ignore", RuntimeWarning)
+  env = myosuite_tpu_torch.make("MtxHandReachRandom-v0", device=dev)
+  data = env.reset(torch.Generator(dev).manual_seed(0), RENDER_BATCH).data
+  vo = VisualObs(env, [VISUAL_KEY])
+  feats = vo.get_visuals(data)[VISUAL_KEY]
+  _, _, hw, name = parse_visual_key(VISUAL_KEY)
+  r = vo._renderers[hw]
+  render_ms = cuda_ms(lambda: r.render(data), 3)
+  img = r.render(data)
+  encode = vo._encoders[name]
+  enc_ms = cuda_ms(lambda: encode(img), 3)
+  cpu_env = myosuite_tpu_torch.make("MtxHandReachRandom-v0", device="cpu")
+  from myosuite_tpu_torch.parallel.mesh import take_rows
+  rows = _moved(take_rows(data, slice(0, RENDER_CPU_ROWS), RENDER_BATCH),
+                "cpu")
+  cpu = VisualObs(cpu_env, [VISUAL_KEY]).get_visuals(rows)[VISUAL_KEY]
+  ours = feats[:RENDER_CPU_ROWS].cpu().double()
+  scale = float(cpu.double().abs().max())
+  gap = float((ours - cpu.double()).abs().max()) / scale
+  tf32 = (torch.backends.cuda.matmul.allow_tf32,
+          torch.backends.cudnn.allow_tf32)
+  print(f"  14e VisualObs {VISUAL_KEY} at {RENDER_BATCH} envs: features "
+        f"{tuple(feats.shape)}, render {render_ms:.2f} ms, encoder "
+        f"{enc_ms:.2f} ms; card against CPU on {RENDER_CPU_ROWS} envs "
+        f"{gap:.3e} of the features' scale {scale:.3e}; matmul.allow_tf32 "
+        f"{tf32[0]} cudnn.allow_tf32 {tf32[1]}")
+  if not (gap <= 1e-3 and bool(torch.isfinite(feats).all())):
+    raise AssertionError("VisualObs: card and CPU features differ")
+  if any(tf32):
+    raise AssertionError("phase 14: a TF32 flag is on")
+  return dict(render_ms=render_ms, encoder_ms=enc_ms, rel_gap=gap)
+
+
+def render_tools_check(dev, build):
+  """14(f): GymEnv.render, render_cams and examine_env's video frames on
+  the card, each frame set saved as .npy under `build`."""
+  from myosuite_tpu_torch.envs.gym_adapter import GymEnv
+  from myosuite_tpu_torch.utils import examine_env, render_cams
+  import myosuite_tpu_torch
+  out = {}
+  gym = GymEnv("MtxHandReachRandom-v0", device=dev)
+  gym.reset(seed=0)
+  gym.step(np.zeros(gym.unwrapped_env.action_size, np.float32))
+  out["gym"] = gym.render()
+  env = myosuite_tpu_torch.make("MtxElbowPoseRandom-v0", device=dev)
+  cams = render_cams.render_all_cams(env)
+  out.update({f"cam_{k}": v for k, v in cams.items()})
+  gen = torch.Generator(dev).manual_seed(0)
+  rec = examine_env.rollout_episodes(
+      env, lambda obs, g: 2.0 * torch.rand(obs.shape[0], env.action_size,
+                                           generator=g, device=dev) - 1.0,
+      4, 25, gen, poses=True)
+  out["examine_env"] = examine_env.episode_frames(env, rec).cpu().numpy()
+  for k, v in out.items():
+    np.save(os.path.join(build, f"render_{k}.npy"), v)
+    if v.dtype != np.uint8 or v.shape[-1] != 3 or not v.any():
+      raise AssertionError(f"phase 14 tools: {k} frames {v.shape} "
+                           f"{v.dtype} are wrong or black")
+  print("  14f tools: " + ", ".join(f"{k} {v.shape}" for k, v in out.items())
+        + f" saved as .npy under {os.path.relpath(build)}")
+  return {k: list(v.shape) for k, v in out.items()}
 
 
 def main():
@@ -2420,11 +2710,15 @@ def main():
   mesh_tools_phase(dev, build)
 
   mark(13)
+  # 14. C5 and the renderer
+  rendered = render_phase(dev, build, opts.parent)
+
+  mark(14)
   print("phase ends (s since the start): " + ", ".join(
       f"{n} {t:.0f}" for n, t in ends))
   # the card again, on one of the last lines (the head of a long output
   # may be cut off where it is read)
-  print(f"phases 1-13 in {time.perf_counter() - t_start:.0f} s")
+  print(f"phases 1-14 in {time.perf_counter() - t_start:.0f} s")
   print(f"nvidia-smi: {smi}")
   print(json.dumps({"kernels": [{
       "name": "newton_solver", "route": "cuda",
@@ -2433,6 +2727,7 @@ def main():
       "launches": launches_ppo,
       "launches_per_training_step": launches_ppo / len(trained["steps"]),
       "launches_per_control_step": launches / STEPS,
+      "launches_phase_14": rendered["launches"],
       "max_abs_err": hand["max_abs"], "ms": ms,
       "plain_ms": hand["plain_ms"], "bound_ms": hand["bound_ms"],
       "bound_by": hand["bound_by"], "library_ms": None,

@@ -11,6 +11,13 @@ points run on CUDA unless the caller names another device:
 
 __version__ = "0.1.0"
 
+import torch as _torch
+
+# float32 everywhere, never TF32 (the JAX package's products run at HIGHEST
+# precision): matmuls and cuDNN convolutions alike
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
 from myosuite_tpu_torch.envs import make, registered_envs
 
 

@@ -46,6 +46,7 @@ from myosuite_tpu_torch.envs import heightfields, opponents, osl
 from myosuite_tpu_torch.envs.base import MyoEnv, State
 from myosuite_tpu_torch.envs.locomotion import WalkEnv
 from myosuite_tpu_torch.envs.wrappers import _pick_info
+from myosuite_tpu_torch.physics import math as pmath
 from myosuite_tpu_torch.physics import types
 from myosuite_tpu_torch.physics.types import Data, DynType, Model
 
@@ -153,8 +154,8 @@ class _LegChallengeEnv(WalkEnv):
 
   def _grf(self, data: Data) -> torch.Tensor:
     """(B, 2) right / left vertical ground reaction force / body weight."""
-    r = data.contact_force @ self._grf_mask_r
-    l = data.contact_force @ self._grf_mask_l
+    r = pmath.fixed_sum(data.contact_force * self._grf_mask_r, -1)
+    l = pmath.fixed_sum(data.contact_force * self._grf_mask_l, -1)
     return torch.stack([r, l], -1) / self._body_weight
 
   def _body_obs(self, data: Data) -> torch.Tensor:

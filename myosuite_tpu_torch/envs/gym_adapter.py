@@ -4,8 +4,8 @@ The JAX package's `GymEnv`: one env (a batch of 1) on a device, for
 single-env debugging and for code written against the classic API. It
 subclasses `gymnasium.Env` and has spaces when gymnasium imports, and is a
 plain class otherwise. `step` returns numpy observations, a float reward,
-two bools and the metrics as numpy. Rendering needs MuJoCo's renderer,
-which the port does not have yet.
+two bools and the metrics as numpy. `render` draws the env with the
+port's ray caster (`renderer.Renderer`) as (H, W, 3) uint8 numpy.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ class GymEnv(_BASE):
     self._device = self._env.device
     self._generator = torch.Generator(self._device).manual_seed(seed)
     self._state = None
+    self._renderer = None
     self.render_mode = render_mode
 
     obs_dim = int(self._env.reset(
@@ -74,10 +75,11 @@ class GymEnv(_BASE):
     info = {k: v[0].cpu().numpy() for k, v in state.metrics.items()}
     return obs, reward, terminated, truncated, info
 
-  def render(self):
-    raise NotImplementedError(
-        "render: the port has no renderer yet (MuJoCo's GL renderer; "
-        "ROADMAP item 9)")
+  def render(self) -> np.ndarray:
+    if self._renderer is None:
+      from myosuite_tpu_torch.renderer import Renderer
+      self._renderer = Renderer(self._env)
+    return self._renderer.render(self._state.data)[0].cpu().numpy()
 
   def close(self):
     pass

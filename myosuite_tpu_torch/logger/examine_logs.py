@@ -4,12 +4,12 @@ The JAX package's `logger.examine_logs`: load a Trace (.h5, .pkl or .mtp),
 print its structure, and in playback mode recompute each logged step's
 rewards by settling the logged qpos / qvel through the env's physics and
 its reward function. The port settles every step of a group as one batch.
-Rendering (--mode render, --video) waits for the renderer's port and
-raises NotImplementedError.
+--mode render (or --video) draws the first group's qpos sequence with the
+port's ray caster as one batch (`renderer.render_qpos_sequence`).
 
 Usage:
   python -m myosuite_tpu_torch.logger.examine_logs -t rollouts.mtp \\
-      [-e <env id> --mode playback] [--device cpu]
+      [-e <env id> --mode playback|render] [--video out.mp4] [--device cpu]
 """
 
 from __future__ import annotations
@@ -56,9 +56,6 @@ def main(argv=None):
   parser.add_argument("--device", default="cuda",
                       help="torch device of the playback (default cuda)")
   args = parser.parse_args(argv)
-  if args.mode == "render" or args.video:
-    raise NotImplementedError("rendering a trace waits for the renderer's "
-                              "port")
 
   from myosuite_tpu_torch.logger.trace import Trace
 
@@ -77,6 +74,18 @@ def main(argv=None):
       total = sum(sum(r.values()) for r in rewards)
       print(f"{group}: {len(rewards)} steps, recomputed reward sum "
             f"{total:.3f}")
+
+  if args.mode == "render" or args.video:
+    if not args.env_name:
+      parser.error("--env_name is required for render")
+    import myosuite_tpu_torch
+    from myosuite_tpu_torch.renderer import render_qpos_sequence
+    env = myosuite_tpu_torch.make(args.env_name, device=args.device)
+    group = next(iter(tr.keys()))
+    out = args.video or "examine_logs.mp4"
+    render_qpos_sequence(env, np.asarray(tr[group]["qpos"]), out,
+                         fps=int(round(1.0 / env.dt)))
+    print(f"saved video: {out}")
 
 
 if __name__ == "__main__":

@@ -13,6 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from myosuite_tpu_torch.physics import math
 from myosuite_tpu_torch.physics.types import (BiasType, Data, DynType,
                                               GainType, JointType, Model,
                                               TrnType, index_tensor)
@@ -20,7 +21,7 @@ from myosuite_tpu_torch.physics.types import (BiasType, Data, DynType,
 
 class Plan(NamedTuple):
   joint_moment: torch.Tensor   # (nu, nv) constant moment of joint actuators
-  len_qmap: torch.Tensor       # (nu, nq): length = map @ qpos
+  len_qmap: math.FixedRows     # (nu, nq): length = map @ qpos
   ten_gather: torch.Tensor     # (nu,) tendon id per actuator
   ten_scale: torch.Tensor      # (nu,) gear0, 0 if not a tendon actuator
   ctrl_limited: torch.Tensor   # (nu,) bool
@@ -75,7 +76,7 @@ def make_plan(m: Model) -> Plan:
                      m.actuator_biastype)
   return Plan(
       joint_moment=torch.as_tensor(joint_moment, device=dev),
-      len_qmap=torch.as_tensor(len_qmap, device=dev),
+      len_qmap=math.fixed_rows(len_qmap, dev),
       ten_gather=index_tensor(ten_gather, dev),
       ten_scale=torch.as_tensor(ten_scale, device=dev),
       ctrl_limited=mask(m.actuator_ctrllimited),
@@ -101,7 +102,7 @@ def transmission(m: Model, d: Data) -> Data:
   if m.nu == 0:
     return d
   plan: Plan = m.plan["actuation"]
-  lengths = torch.matmul(d.qpos, plan.len_qmap.T)
+  lengths = math.rows_apply(plan.len_qmap, d.qpos, 1)
   moment = plan.joint_moment.expand(d.batch, -1, -1)
   if m.ntendon:
     lengths = lengths + d.ten_length[:, plan.ten_gather] * plan.ten_scale
@@ -113,8 +114,8 @@ def transmission(m: Model, d: Data) -> Data:
 def actuator_velocity(m: Model, d: Data) -> Data:
   if m.nu == 0:
     return d
-  return d.replace(actuator_velocity=torch.matmul(
-      d.actuator_moment, d.qvel[..., None])[..., 0])
+  return d.replace(actuator_velocity=math.fixed_mv(d.actuator_moment,
+                                                    d.qvel))
 
 
 # ---------------------------------------------------------------------------
@@ -238,7 +239,7 @@ def actuation(m: Model, d: Data) -> Data:
   force = torch.where(plan.force_limited,
                       torch.clamp(force, m.actuator_forcerange[:, 0],
                                   m.actuator_forcerange[:, 1]), force)
-  qfrc = torch.matmul(force[:, None, :], d.actuator_moment)[:, 0]
+  qfrc = math.fixed_vm(force, d.actuator_moment)
 
   act_dot = d.act_dot
   if m.na:

@@ -39,12 +39,12 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _mv(mat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
   """mat @ v over leading axes."""
-  return torch.matmul(mat, v[..., None])[..., 0]
+  return math.fixed_mv(mat, v)
 
 
 def _mtv(mat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
   """mat^T @ v over leading axes."""
-  return torch.matmul(mat.transpose(-1, -2), v[..., None])[..., 0]
+  return math.fixed_vm(v, mat)
 
 
 def _lowest(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -126,7 +126,7 @@ def _box_corners(p, mat, size):
   """(..., 8, 3) world corners."""
   signs = torch.as_tensor(_SIGNS, device=p.device)
   local = signs * size[..., None, :3]
-  return p[..., None, :] + torch.matmul(local, mat.transpose(-1, -2))
+  return p[..., None, :] + math.fixed_mm(local, mat.transpose(-1, -2))
 
 
 def _plane_box(p1, m1, s1, p2, m2, s2):
@@ -334,7 +334,7 @@ def _point_mesh_local(mt: MeshTables, c, radius):
   closest = _take(cp, i[..., None])[..., 0, :]
   dc = torch.sqrt(torch.clamp(torch.gather(d2, -1, i[..., None])[..., 0],
                               min=_EPS))
-  inside = (torch.matmul(c, mt.fnorm.T.to(c.dtype)) - mt.foff < 0.0).all(-1)
+  inside = (math.fixed_vm(c, mt.fnorm.T.to(c.dtype)) - mt.foff < 0.0).all(-1)
   dif = closest - c
   n_out = dif / torch.clamp(dc, min=_EPS)[..., None]
   n = torch.where(inside[..., None], -n_out, n_out)
@@ -352,8 +352,8 @@ def _mesh_fns(mt: MeshTables) -> Dict[Tuple[int, int], Callable]:
     return dist, pm + _mv(mm, pos_l), _mv(mm, n_l)
 
   def world_verts(p, mat):
-    return p[..., None, :] + torch.matmul(mt.verts.to(p.dtype),
-                                          mat.transpose(-1, -2))
+    return p[..., None, :] + math.fixed_mm(mt.verts.to(p.dtype),
+                                           mat.transpose(-1, -2))
 
   def plane_mesh(p1, m1, s1, p2, m2, s2):
     n = m1[..., :, 2]

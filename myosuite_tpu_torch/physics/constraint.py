@@ -78,6 +78,7 @@ class Plan(NamedTuple):
   con_groups: tuple         # ((condim, slot ids), ...) by ascending condim
   con_slots: torch.Tensor   # (nefc,) contact slot per row, -1 elsewhere
   con_rows: torch.Tensor    # rows of contacts (con_slots >= 0)
+  con_force: math.FixedRows  # (slots, nefc): a slot's rows, summed
   con_body1: torch.Tensor   # (ncon,) body of each slot's geoms
   con_body2: torch.Tensor
   nefc: int
@@ -119,6 +120,8 @@ def make_plan(m: Model) -> Plan:
               lim_J=one_hot(lim_vadr), lim_ten=idx(lim_ten),
               con_groups=tuple((c, idx(ids)) for c, ids in con_groups),
               con_slots=idx(con_slots), con_rows=idx(con_rows),
+              con_force=math.fixed_rows(
+                  con_slots[None, :] == np.arange(len(slots))[:, None], dev),
               con_body1=idx(m.geom_bodyid[slots[:, 0]]),
               con_body2=idx(m.geom_bodyid[slots[:, 1]]),
               nefc=len(con_slots), n_fr=n_fr, n_jlim=n_jlim, n_tlim=n_tlim,
@@ -155,7 +158,7 @@ def _contact_rows(m: Model, d: Data, plan: Plan):
     return jacp * kin.body_dof_mask[bodies][None, :, :, None]
 
   jdiff = pts_jac(b2) - pts_jac(b1)
-  jc = torch.einsum("bnak,bnvk->bnav", con.frame, jdiff)  # (B, ncon, 3, nv)
+  jc = math.fixed_mm(con.frame, jdiff.transpose(-1, -2))  # (B, ncon, 3, nv)
   pos_err = con.dist - con.includemargin
   active = con.dist < con.includemargin
   k, b, imp = _kbi(con.solref, con.solimp, pos_err)
@@ -182,7 +185,7 @@ def _contact_rows(m: Model, d: Data, plan: Plan):
 
 
 def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-  return torch.matmul(A, x[..., None])[..., 0]
+  return math.fixed_mv(A, x)
 
 
 def make_efc(m: Model, d: Data) -> Efc:

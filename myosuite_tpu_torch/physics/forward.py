@@ -97,8 +97,8 @@ def xfrc_projection(m: Model, d: Data) -> torch.Tensor:
   frc = d.xfrc_applied
   cfrc = torch.cat([frc[..., 3:] + math.cross(offset, frc[..., :3]),
                     frc[..., :3]], -1)                   # (B, nbody, 6)
-  per_body = torch.matmul(cfrc, d.cdof.transpose(-1, -2))  # (B, nbody, nv)
-  return (per_body * kin.body_dof_mask).sum(1)
+  per_body = math.fixed_mm(cfrc, d.cdof.transpose(-1, -2))  # (B, nbody, nv)
+  return math.fixed_sum(per_body * kin.body_dof_mask, 1)
 
 
 def fwd_acceleration(m: Model, d: Data) -> Data:
@@ -120,9 +120,8 @@ def fwd_constraint(m: Model, d: Data) -> Data:
     return d
   # per-contact normal force: the pyramidal edge forces of one contact sum
   # to its normal component
-  contact_force = torch.zeros_like(d.contact_force).index_add_(
-      1, plan.con_slots[plan.con_rows], efc_force[:, plan.con_rows])
-  return d.replace(contact_force=contact_force)
+  return d.replace(contact_force=math.rows_apply(plan.con_force, efc_force,
+                                                  1))
 
 
 def solve_inputs(m: Model, d: Data):

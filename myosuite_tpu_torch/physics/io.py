@@ -1,7 +1,8 @@
 """Model loading: MJCF -> field dict -> `Model`, and `.npz` round trips.
 
 MuJoCo's compiler is the MJCF front end and runs only on the host, inside
-`put_model`; it is imported there and nowhere else. `model_fields` turns a
+`put_model`; it is imported there and in `model_fields` (for the default
+free camera), and nowhere else. `model_fields` turns a
 compiled `mujoco.MjModel` into a dict of plain numpy arrays, and
 `model_from_numpy` builds the torch `Model` from such a dict. `save_model`
 writes the dict as `.npz`, so a machine without MuJoCo loads a model that
@@ -22,9 +23,9 @@ import torch
 
 from myosuite_tpu_torch.physics import types
 from myosuite_tpu_torch.physics.types import (OPTION_PARAMS, OPTION_STATIC,
-                                              PARAM_FIELDS, SIZE_FIELDS,
-                                              STRUCT_FIELDS, Data, GeomType,
-                                              Model, Option)
+                                              PARAM_FIELDS, RENDER_FIELDS,
+                                              SIZE_FIELDS, STRUCT_FIELDS,
+                                              Data, GeomType, Model, Option)
 
 # Number of contact points each supported pair class can generate.
 _PAIR_NCON = {
@@ -142,6 +143,31 @@ def put_model(mj, device=None) -> Model:
   return model_from_numpy(model_fields(mj), device)
 
 
+def _render_fields(mj) -> Dict[str, np.ndarray]:
+  """The RENDER_FIELDS of a compiled `mujoco.MjModel`."""
+  import mujoco
+  free = mujoco.MjvCamera()
+  mujoco.mjv_defaultFreeCamera(mj, free)
+  extent = float(mj.stat.extent)
+  f32 = lambda x: np.asarray(x, dtype=np.float32)
+  i32 = lambda x: np.asarray(x, dtype=np.int32)
+  return {
+      "geom_rgba": f32(mj.geom_rgba), "geom_group": i32(mj.geom_group),
+      "cam_names": np.asarray(
+          [mujoco.mj_id2name(mj, mujoco.mjtObj.mjOBJ_CAMERA, i) or ""
+           for i in range(mj.ncam)], dtype=np.str_),
+      "cam_bodyid": i32(mj.cam_bodyid), "cam_mode": i32(mj.cam_mode),
+      "cam_pos": f32(mj.cam_pos).reshape(-1, 3),
+      "cam_quat": f32(mj.cam_quat).reshape(-1, 4),
+      "cam_fovy": f32(mj.cam_fovy),
+      "free_lookat": f32(free.lookat), "free_distance": f32(free.distance),
+      "free_azimuth": f32(free.azimuth),
+      "free_elevation": f32(free.elevation),
+      "vis_fovy": f32(mj.vis.global_.fovy),
+      "vis_znear": f32(mj.vis.map.znear * extent),
+      "vis_zfar": f32(mj.vis.map.zfar * extent)}
+
+
 def model_fields(mj) -> Dict[str, np.ndarray]:
   """Field dict (plain numpy) of a compiled `mujoco.MjModel`: the input of
   `model_from_numpy` and `save_model`."""
@@ -197,6 +223,7 @@ def model_fields(mj) -> Dict[str, np.ndarray]:
                                        dtype=np.float32)
     out[f"mesh_face_{i}"] = np.asarray(mj.mesh_face[fa:fa + fn],
                                        dtype=np.int32)
+  out.update(_render_fields(mj))
   return out
 
 
@@ -209,7 +236,8 @@ def model_from_numpy(fields: Dict[str, Any], device=None) -> Model:
 
   Keys are the field names of SIZE_FIELDS, STRUCT_FIELDS and PARAM_FIELDS,
   "opt_<name>" for the options and "mesh_{vert,face}_<i>" for the meshes;
-  other keys are ignored.
+  those of RENDER_FIELDS that `fields` has go to `Model.render`; other keys
+  are ignored.
   """
   from myosuite_tpu_torch.physics import (actuation, collision, constraint,
                                           forward, kinematics, smooth,
@@ -233,7 +261,9 @@ def model_from_numpy(fields: Dict[str, Any], device=None) -> Model:
             mesh_vert=tuple(np.asarray(fields[f"mesh_vert_{i}"])
                             for i in range(nmesh)),
             mesh_face=tuple(np.asarray(fields[f"mesh_face_{i}"])
-                            for i in range(nmesh)))
+                            for i in range(nmesh)),
+            render={k: np.asarray(fields[k]) for k in RENDER_FIELDS
+                    if k in fields})
   for mod in (kinematics, tendon, actuation, smooth, collision, constraint,
               forward):
     m.plan[mod.__name__.rsplit(".", 1)[1]] = mod.make_plan(m)
@@ -256,6 +286,7 @@ def load_model(path: str, device=None
   with np.load(path) as z:
     fields = {k: z[k] for k in z.files}
   model_keys = (set(SIZE_FIELDS) | set(STRUCT_FIELDS) | set(PARAM_FIELDS)
+                | set(RENDER_FIELDS)
                 | {"opt_" + k for k in OPTION_STATIC + OPTION_PARAMS})
   extra = {k: v for k, v in fields.items()
            if k not in model_keys and not _is_mesh_key(k)}

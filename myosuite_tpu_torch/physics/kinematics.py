@@ -5,7 +5,8 @@ Bodies are posed one tree level at a time (`Model.body_tree`): every body of
 a level is done by one set of tensor ops, with the level's joints grouped by
 slot and type. Subtree sums (subtree CoM) are products with the subtree
 mask, and body velocities are products with the ancestor-dof masks built
-here once per model, so neither walks the tree.
+here once per model, so neither walks the tree; each product sums in a
+fixed order (`math.rows_apply`), whatever the batch.
 """
 
 from __future__ import annotations
@@ -46,7 +47,9 @@ class Plan(NamedTuple):
   levels: Tuple[_Level, ...]
   cdof_groups: Tuple[_CdofGroup, ...]
   body_dof_mask: torch.Tensor   # (nbody, nv): dof is an ancestor dof of body
-  pre_vel_mask: torch.Tensor    # (nv, nv): dofs in the velocity a dof sees
+  body_dofs: math.FixedRows     # body_dof_mask's rows
+  pre_vel: math.FixedRows       # (nv, nv): dofs in the velocity a dof sees
+  subtree: math.FixedRows       # body_subtreemask's rows
   dof_dot_mask: torch.Tensor    # (nv,): 0 for free-joint translations
   geom_body: torch.Tensor
   site_body: torch.Tensor
@@ -119,7 +122,10 @@ def make_plan(m: Model) -> Plan:
 
   f32 = lambda x: torch.as_tensor(x, device=dev)
   return Plan(levels=tuple(levels), cdof_groups=tuple(cdof_groups),
-              body_dof_mask=f32(dof_mask), pre_vel_mask=f32(pre),
+              body_dof_mask=f32(dof_mask),
+              body_dofs=math.fixed_rows(dof_mask, dev),
+              pre_vel=math.fixed_rows(pre, dev),
+              subtree=math.fixed_rows(m.body_subtreemask.cpu().numpy(), dev),
               dof_dot_mask=f32(dot_mask), geom_body=idx(m.geom_bodyid),
               site_body=idx(m.site_bodyid), root=idx(m.body_rootid))
 
@@ -207,9 +213,8 @@ def com_pos(m: Model, d: Data) -> Data:
   plan: Plan = m.plan["kinematics"]
   mass = m.body_mass
   wmass = mass[..., None] * d.xipos
-  subtree_mass = (m.body_subtreemask @ mass if mass.dim() == 1
-                  else mass @ m.body_subtreemask.T)
-  subtree_com = (torch.matmul(m.body_subtreemask, wmass)
+  subtree_mass = math.rows_apply(plan.subtree, mass, -1)
+  subtree_com = (math.rows_apply(plan.subtree, wmass, -2)
                  / torch.clamp(subtree_mass, min=1e-12)[..., None])
   root_com = subtree_com[:, plan.root]
 
@@ -261,7 +266,7 @@ def com_vel(m: Model, d: Data) -> Data:
   """Body spatial velocities cvel and dof-axis derivatives cdof_dot."""
   plan: Plan = m.plan["kinematics"]
   cq = d.cdof * d.qvel[..., None]                      # (B, nv, 6)
-  cvel = torch.matmul(plan.body_dof_mask, cq)          # (B, nbody, 6)
-  vpre = torch.matmul(plan.pre_vel_mask, cq)           # (B, nv, 6)
+  cvel = math.rows_apply(plan.body_dofs, cq, 1)        # (B, nbody, 6)
+  vpre = math.rows_apply(plan.pre_vel, cq, 1)          # (B, nv, 6)
   cdof_dot = math.motion_cross(vpre, d.cdof) * plan.dof_dot_mask[:, None]
   return d.replace(cvel=cvel, cdof_dot=cdof_dot)

@@ -12,6 +12,9 @@ same reason: mass matrices span ~1e6 in conditioning).
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
+import numpy as np
 import torch
 
 _EPS = 1e-12
@@ -25,6 +28,96 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   return (a * b).sum(-1)
+
+
+# Batch-invariant products. cuBLAS picks a GEMM / GEMV algorithm from the
+# problem's size, and a product that folds the env axis into M or N (or the
+# batch count of a bmm) sums in another order at another batch size, so a
+# batch-1 step was not bit-equal to its row of a batch. The helpers below
+# sum over the contracted axis with elementwise adds in an order set by
+# that axis's length alone, never by the batch or by a reduction kernel's
+# launch configuration.
+
+
+def fixed_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+  """Sum over `dim` with elementwise adds: up to 4 terms left to right;
+  more zero-padded to a power of two and halved pairwise (element i plus
+  element i + h, h = half the padded length), one add per halving."""
+  dim = dim % x.dim()
+  n = x.shape[dim]
+  if n == 0:
+    return x.new_zeros(x.shape[:dim] + x.shape[dim + 1:])
+  if n <= 4:
+    terms = x.unbind(dim)
+    out = terms[0]
+    for t in terms[1:]:
+      out = out + t
+    return out
+  p = 1 << (n - 1).bit_length()
+  if p != n:
+    x = torch.cat([x, x.new_zeros(x.shape[:dim] + (p - n,)
+                                  + x.shape[dim + 1:])], dim)
+  while p > 1:
+    p //= 2
+    x = x.narrow(dim, 0, p) + x.narrow(dim, p, p)
+  return x.squeeze(dim)
+
+
+def fixed_mv(mat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+  """mat (..., m, k) @ v (..., k) -> (..., m), leading axes broadcast."""
+  return fixed_sum(mat * v[..., None, :], -1)
+
+
+def fixed_vm(v: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+  """v (..., k) @ mat (..., k, n) -> (..., n), leading axes broadcast."""
+  return fixed_sum(v[..., :, None] * mat, -2)
+
+
+def fixed_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """a (..., m, k) @ b (..., k, n) -> (..., m, n), leading axes
+  broadcast. Holds a (..., m, k, n) product: for small k."""
+  return fixed_sum(a[..., :, :, None] * b[..., None, :, :], -2)
+
+
+class FixedRows(NamedTuple):
+  """A constant (m, k) matrix kept as its nonzeros, row by row: index
+  (m, r) into the k columns (k itself for padding, which reads a zero) and
+  weight (m, r), None where every nonzero is 1."""
+  index: torch.Tensor
+  weight: Optional[torch.Tensor]
+
+
+def fixed_rows(mat, device) -> FixedRows:
+  """FixedRows of a host (m, k) matrix; r is the most nonzeros of a row,
+  rounded up to a power of two."""
+  mat = np.asarray(mat, dtype=np.float32)
+  m, k = mat.shape
+  nz = [np.nonzero(row)[0] for row in mat]
+  r = 1 << (max([len(c) for c in nz] + [1]) - 1).bit_length()
+  index = np.full((m, r), k, dtype=np.int64)
+  weight = np.zeros((m, r), dtype=np.float32)
+  for i, c in enumerate(nz):
+    index[i, :len(c)] = c
+    weight[i, :len(c)] = mat[i, c]
+  ones = bool(np.all(mat[mat != 0.0] == 1.0))
+  return FixedRows(torch.as_tensor(index, device=device),
+                   None if ones else torch.as_tensor(weight, device=device))
+
+
+def rows_apply(rows: FixedRows, x: torch.Tensor, dim: int) -> torch.Tensor:
+  """The matrix of `rows` (m, k) applied along axis `dim` of x (size k):
+  out[..., i, ...] = sum_j mat[i, j] x[..., j, ...], axis `dim` becoming
+  size m; the nonzeros of row i summed by `fixed_sum`."""
+  dim = dim % x.dim()
+  m, r = rows.index.shape
+  xz = torch.cat([x, x.new_zeros(x.shape[:dim] + (1,) + x.shape[dim + 1:])],
+                 dim)
+  g = xz.index_select(dim, rows.index.reshape(-1))
+  g = g.reshape(x.shape[:dim] + (m, r) + x.shape[dim + 1:])
+  if rows.weight is not None:
+    g = g * rows.weight.reshape((m, r) + (1,) * (x.dim() - dim - 1)).to(
+        x.dtype)
+  return fixed_sum(g, dim + 1)
 
 
 def normalize(v: torch.Tensor) -> torch.Tensor:

@@ -54,9 +54,10 @@ def make_plan(m: Model) -> Plan:
 def crb(m: Model, d: Data) -> Data:
   """Composite-rigid-body dense mass matrix."""
   plan: Plan = m.plan["smooth"]
-  crb_inert = torch.matmul(m.body_subtreemask, d.cinert)     # (B, nbody, 10)
+  kin = m.plan["kinematics"]
+  crb_inert = math.rows_apply(kin.subtree, d.cinert, 1)      # (B, nbody, 10)
   f = math.inert_vec(crb_inert[:, plan.dof_body], d.cdof)    # (B, nv, 6)
-  m1 = torch.matmul(f, d.cdof.transpose(-1, -2))             # (B, nv, nv)
+  m1 = math.fixed_mm(f, d.cdof.transpose(-1, -2))            # (B, nv, nv)
   lower = m1 * plan.ancestor_mask
   qm = (lower + lower.transpose(-1, -2)
         - torch.diag_embed(torch.diagonal(lower, dim1=-2, dim2=-1)))
@@ -69,11 +70,11 @@ def rne(m: Model, d: Data) -> Data:
   kin = m.plan["kinematics"]
   grav = m.opt.gravity
   cacc0 = torch.cat([torch.zeros_like(grav), -grav])
-  cacc = cacc0 + torch.matmul(kin.body_dof_mask,
-                              d.cdof_dot * d.qvel[..., None])
+  cacc = cacc0 + math.rows_apply(kin.body_dofs,
+                                 d.cdof_dot * d.qvel[..., None], 1)
   cfrc = (math.inert_vec(d.cinert, cacc)
           + math.motion_cross_force(d.cvel, math.inert_vec(d.cinert, d.cvel)))
-  cfrc_total = torch.matmul(m.body_subtreemask, cfrc)
+  cfrc_total = math.rows_apply(kin.subtree, cfrc, 1)
   qfrc_bias = (d.cdof * cfrc_total[:, plan.dof_body]).sum(-1)
   return d.replace(qfrc_bias=qfrc_bias)
 
@@ -119,6 +120,6 @@ def passive(m: Model, d: Data) -> Data:
                         torch.where(length > hi, hi - length,
                                     torch.zeros_like(length)))
     frc = m.tendon_stiffness * displ - m.tendon_damping * d.ten_velocity
-    qfrc = qfrc + torch.matmul(frc[:, None, :], d.ten_J)[:, 0]
+    qfrc = qfrc + math.fixed_vm(frc, d.ten_J)
 
   return d.replace(qfrc_passive=qfrc)

@@ -27,7 +27,7 @@ class _Segments(NamedTuple):
   sb: torch.Tensor          # end site
   ba: torch.Tensor          # body of sa
   bb: torch.Tensor          # body of sb
-  to_tendon: torch.Tensor   # (ntendon, n) weights 1/divisor
+  to_tendon: math.FixedRows  # (ntendon, n) weights 1/divisor
   geom: torch.Tensor        # wrap geom
   gb: torch.Tensor          # body of the wrap geom
   side: torch.Tensor        # side site (unused when not sided)
@@ -36,7 +36,7 @@ class _Segments(NamedTuple):
 
 
 class Plan(NamedTuple):
-  fixed_len_w: torch.Tensor   # (ntendon, nq)
+  fixed_len_w: math.FixedRows  # (ntendon, nq)
   fixed_jac_w: torch.Tensor   # (ntendon, nv)
   straight: Tuple[_Segments, ...]
   wraps: Tuple[_Segments, ...]
@@ -100,7 +100,7 @@ def make_plan(m: Model) -> Plan:
                     dtype=np.int64)
     return _Segments(sa=idx(sa), sb=idx(sb), ba=idx(site_body[sa]),
                      bb=idx(site_body[sb]),
-                     to_tendon=torch.as_tensor(w, device=dev),
+                     to_tendon=math.fixed_rows(w, dev),
                      geom=idx(geom), gb=idx(m.geom_bodyid[geom]),
                      side=idx(side), sphere=sphere, sided=sided)
 
@@ -110,7 +110,7 @@ def make_plan(m: Model) -> Plan:
       rows = [r for r in wr if r[4] == sphere and (r[3] >= 0) == sided]
       if rows:
         wraps.append(segments(rows, sphere, sided))
-  return Plan(fixed_len_w=torch.as_tensor(fixed_len_w, device=dev),
+  return Plan(fixed_len_w=math.fixed_rows(fixed_len_w, dev),
               fixed_jac_w=torch.as_tensor(fixed_jac_w, device=dev),
               straight=(segments(st),) if st else (),
               wraps=tuple(wraps))
@@ -130,8 +130,8 @@ def _seg_contrib(m: Model, d: Data, pa, pb, ba, bb):
   aa = torch.cat([math.cross(pa - com_root[:, ba], u), u], -1)
   ab = torch.cat([math.cross(pb - com_root[:, bb], u), u], -1)
   cdof_t = d.cdof.transpose(-1, -2)
-  ta = torch.matmul(aa, cdof_t)                       # (B, n, nv)
-  tb = torch.matmul(ab, cdof_t)
+  ta = math.fixed_mm(aa, cdof_t)                      # (B, n, nv)
+  tb = math.fixed_mm(ab, cdof_t)
   dj = kin.body_dof_mask[bb] * tb - kin.body_dof_mask[ba] * ta
   return length, dj
 
@@ -141,14 +141,14 @@ def tendon(m: Model, d: Data) -> Data:
   if m.ntendon == 0:
     return d
   plan: Plan = m.plan["tendon"]
-  ten_length = torch.matmul(d.qpos, plan.fixed_len_w.T)
+  ten_length = math.rows_apply(plan.fixed_len_w, d.qpos, 1)
   ten_J = plan.fixed_jac_w.expand(d.batch, -1, -1)
 
   for s in plan.straight:
     length, dj = _seg_contrib(m, d, d.site_xpos[:, s.sa], d.site_xpos[:, s.sb],
                               s.ba, s.bb)
-    ten_length = ten_length + torch.matmul(length, s.to_tendon.T)
-    ten_J = ten_J + torch.matmul(s.to_tendon, dj)
+    ten_length = ten_length + math.rows_apply(s.to_tendon, length, 1)
+    ten_J = ten_J + math.rows_apply(s.to_tendon, dj, 1)
 
   for s in plan.wraps:
     pa = d.site_xpos[:, s.sa]
@@ -164,8 +164,8 @@ def tendon(m: Model, d: Data) -> Data:
     active = wlen >= 0.0
     length = torch.where(active, l1 + wlen + l2, ls)
     dj = torch.where(active[..., None], j1 + j2, js)
-    ten_length = ten_length + torch.matmul(length, s.to_tendon.T)
-    ten_J = ten_J + torch.matmul(s.to_tendon, dj)
+    ten_length = ten_length + math.rows_apply(s.to_tendon, length, 1)
+    ten_J = ten_J + math.rows_apply(s.to_tendon, dj, 1)
 
   return d.replace(ten_length=ten_length, ten_J=ten_J.contiguous())
 
@@ -173,4 +173,4 @@ def tendon(m: Model, d: Data) -> Data:
 def tendon_velocity(m: Model, d: Data) -> Data:
   if m.ntendon == 0:
     return d
-  return d.replace(ten_velocity=torch.matmul(d.ten_J, d.qvel[..., None])[..., 0])
+  return d.replace(ten_velocity=math.fixed_mv(d.ten_J, d.qvel))

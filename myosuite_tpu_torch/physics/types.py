@@ -141,6 +141,19 @@ _SHARED_DIMS = {"body_mass": 1, "body_inertia": 2, "geom_size": 2,
                 "geom_friction": 2}
 PER_ENV_FIELDS = tuple(_SHARED_DIMS)
 
+# What a renderer reads and the physics does not (host numpy, in
+# `Model.render`): geom colours and groups, the cameras (names, parent
+# bodies, modes, body-frame poses, vertical fields of view in degrees),
+# MuJoCo's default free camera (mjv_defaultFreeCamera: look-at point,
+# distance, azimuth and elevation in degrees), the free camera's vertical
+# field of view and the near and far clipping distances (vis.map.znear and
+# zfar times stat.extent). A model file written before these existed loads
+# without them.
+RENDER_FIELDS = ("geom_rgba", "geom_group", "cam_names", "cam_bodyid",
+                 "cam_mode", "cam_pos", "cam_quat", "cam_fovy",
+                 "free_lookat", "free_distance", "free_azimuth",
+                 "free_elevation", "vis_fovy", "vis_znear", "vis_zfar")
+
 # Option fields: static Python scalars, then float32 tensors. Stored in a
 # field dict under "opt_<name>".
 OPTION_STATIC = ("timestep", "integrator", "iterations", "ls_iterations",
@@ -172,7 +185,8 @@ class Model:
   Built by `io.model_from_numpy` (which also fills `body_tree` and `plan`);
   the dataclass fields are listed in SIZE_FIELDS, STRUCT_FIELDS and
   PARAM_FIELDS above. `mesh_vert[i]` (V, 3) and `mesh_face[i]` (F, 3) are
-  mesh i's geom-local vertices and triangles (host numpy).
+  mesh i's geom-local vertices and triangles (host numpy). `render` holds
+  the RENDER_FIELDS the model file has.
   """
   sizes: Dict[str, int]
   struct: Dict[str, np.ndarray]
@@ -183,6 +197,7 @@ class Model:
   mesh_vert: Tuple[np.ndarray, ...] = ()
   mesh_face: Tuple[np.ndarray, ...] = ()
   plan: Dict[str, Any] = dataclasses.field(default_factory=dict)
+  render: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
 
   def __getattr__(self, name):
     # Flat access (m.nv, m.jnt_type, m.dof_damping) like the JAX Model.

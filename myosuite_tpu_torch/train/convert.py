@@ -213,3 +213,41 @@ def optax_from_opt_state(opt, policy_params: Mapping[str, torch.Tensor],
           "nu": trees(opt.nu[0]), "notfinite_count": np_(opt.notfinite_count),
           "last_finite": np_(opt.last_finite),
           "total_notfinite": np_(opt.total_notfinite)}
+
+
+def trunk_state_dict_from_flax(params: Mapping[str, Any], device=None
+                               ) -> Dict[str, torch.Tensor]:
+  """A flax `ResNetTrunk` parameter tree (numpy leaves, with or without
+  the top-level "params": "Conv_0" and "GroupNorm_0" of the stem, then
+  "BasicBlock_<i>" with "Conv_0/1" and "GroupNorm_0/1", and "Conv_2" /
+  "GroupNorm_2" where the block projects its input) as the state dict of
+  `envs.visual_nets.ResNetTrunk`: kernels HWIO -> OIHW, GroupNorm scale ->
+  weight."""
+  if "params" in params:
+    params = params["params"]
+  out = {}
+
+  def conv(key, scope):
+    k = np.asarray(scope["kernel"], dtype=np.float32)
+    out[key] = torch.tensor(np.ascontiguousarray(k.transpose(3, 2, 0, 1)),
+                            device=device)
+
+  def norm(key, scope):
+    out[key + ".weight"] = torch.tensor(
+        np.asarray(scope["scale"], dtype=np.float32), device=device)
+    out[key + ".bias"] = torch.tensor(
+        np.asarray(scope["bias"], dtype=np.float32), device=device)
+
+  conv("stem.weight", params["Conv_0"])
+  norm("stem_norm", params["GroupNorm_0"])
+  n = sum(1 for k in params if k.startswith("BasicBlock_"))
+  for i in range(n):
+    b = params[f"BasicBlock_{i}"]
+    conv(f"blocks.{i}.conv0.weight", b["Conv_0"])
+    norm(f"blocks.{i}.norm0", b["GroupNorm_0"])
+    conv(f"blocks.{i}.conv1.weight", b["Conv_1"])
+    norm(f"blocks.{i}.norm1", b["GroupNorm_1"])
+    if "Conv_2" in b:
+      conv(f"blocks.{i}.proj.0.weight", b["Conv_2"])
+      norm(f"blocks.{i}.proj.1", b["GroupNorm_2"])
+  return out

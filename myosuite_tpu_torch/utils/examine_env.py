@@ -8,12 +8,15 @@ counted up to and including its first done) and the mean return, and save
 the episodes as a Trace (.h5, .pkl or .mtp by the path's extension). The
 JAX CLI runs the episodes one after another; the port runs all N as one
 batch on the device and cuts each episode at its first done afterwards.
---video and --render onscreen wait for the renderer's port and raise
-NotImplementedError.
+--video draws every episode's steps, one after another, with the port's
+ray caster (`renderer`) as one batch and writes them with imageio (an mp4
+needs imageio's ffmpeg, a .gif only pillow). --render onscreen raises:
+the onscreen viewer waits for the MJCF builders' port.
 
 Usage:
   python -m myosuite_tpu_torch.utils.examine_env -e MtxElbowPoseRandom-v0 \\
-      -n 64 [-p <ppo checkpoint step dir>] [--trace out.mtp] [--device cpu]
+      -n 64 [-p <ppo checkpoint step dir>] [--trace out.mtp] \\
+      [--video out.mp4] [--device cpu]
 """
 
 from __future__ import annotations
@@ -27,15 +30,23 @@ import torch
 MIN_SOLVED_STEPS = 5
 
 
+POSE_FIELDS = ("qpos", "mocap_pos", "mocap_quat")
+
+
 def rollout_episodes(env, policy_fn: Callable, num_episodes: int,
-                     horizon: int, generator: torch.Generator
-                     ) -> Dict[str, torch.Tensor]:
+                     horizon: int, generator: torch.Generator,
+                     poses: bool = False) -> Dict[str, torch.Tensor]:
   """`horizon` control steps of `num_episodes` fresh episodes as one batch
   of the plain env, actions policy_fn(obs, generator): the stacked
-  (T, B, ...) obs, reward, solved and done after each step."""
+  (T, B, ...) obs, reward, solved and done after each step; with `poses`
+  also the POSE_FIELDS after each step and the reset's heightfields
+  ("hfield", (B, nrow, ncol)), which a rendering reads."""
   rec = {"obs": [], "reward": [], "solved": [], "done": []}
+  if poses:
+    rec.update({k: [] for k in POSE_FIELDS})
   with torch.no_grad():
     state = env.reset(generator, num_episodes)
+    hfield = state.data.hfield_data
     for _ in range(horizon):
       state = env.step(state, policy_fn(state.obs["state"], generator))
       rec["obs"].append(state.obs["state"])
@@ -43,7 +54,30 @@ def rollout_episodes(env, policy_fn: Callable, num_episodes: int,
       rec["solved"].append(state.metrics.get(
           "solved", torch.zeros_like(state.reward)))
       rec["done"].append(state.done)
-  return {k: torch.stack(v) for k, v in rec.items()}
+      if poses:
+        for k in POSE_FIELDS:
+          rec[k].append(getattr(state.data, k))
+  out = {k: torch.stack(v) for k, v in rec.items()}
+  if poses:
+    out["hfield"] = hfield
+  return out
+
+
+def episode_frames(env, rec: Dict[str, torch.Tensor], camera=None,
+                   width: int = 640, height: int = 480) -> torch.Tensor:
+  """rgb frames (F, H, W, 3) uint8 of every episode's steps up to its
+  length, episode after episode, drawn as one batch from a
+  `rollout_episodes(..., poses=True)` record."""
+  from myosuite_tpu_torch.renderer import Renderer
+  from myosuite_tpu_torch.renderer.renderer import pose_data
+  lengths = episode_lengths(rec["done"]).tolist()
+  dev = rec["qpos"].device
+  ep = torch.cat([torch.full((n,), i, dtype=torch.long, device=dev)
+                  for i, n in enumerate(lengths)])
+  t = torch.cat([torch.arange(n, device=dev) for n in lengths])
+  d = pose_data(env.model, rec["qpos"][t, ep], rec["mocap_pos"][t, ep],
+                rec["mocap_quat"][t, ep], rec["hfield"][ep])
+  return Renderer(env, width=width, height=height).render(d, camera=camera)
 
 
 def episode_lengths(done: torch.Tensor) -> torch.Tensor:
@@ -79,13 +113,13 @@ def main(argv=None):
   parser.add_argument("--device", default="cuda",
                       help="torch device to run on (default cuda)")
   args = parser.parse_args(argv)
-  if args.video or args.render != "none":
-    raise NotImplementedError("--video and --render onscreen wait for the "
-                              "renderer's port")
 
   import myosuite_tpu_torch
 
   env = myosuite_tpu_torch.make(args.env_name, device=args.device)
+  if args.render == "onscreen":
+    from myosuite_tpu_torch.renderer import PassiveViewer
+    PassiveViewer(env)
   horizon = args.horizon or env.max_episode_steps
   if args.policy_path:
     from myosuite_tpu_torch.agents import pretrained
@@ -98,7 +132,8 @@ def main(argv=None):
         device=obs.device) - 1.0
 
   gen = torch.Generator(env.device).manual_seed(args.seed)
-  rec = rollout_episodes(env, policy_fn, args.num_episodes, horizon, gen)
+  rec = rollout_episodes(env, policy_fn, args.num_episodes, horizon, gen,
+                         poses=bool(args.video))
   lengths = episode_lengths(rec["done"]).tolist()
   won = successes(rec["solved"], rec["done"])
   host = {k: v.cpu().numpy() for k, v in rec.items()}
@@ -119,6 +154,12 @@ def main(argv=None):
       tr.trace[g]["solved"] = host["solved"][:n, i]
     tr.save(args.trace)
     print(f"saved trace: {args.trace}")
+
+  if args.video:
+    from myosuite_tpu_torch.renderer.renderer import save_video
+    frames = episode_frames(env, rec).cpu().numpy()
+    save_video(args.video, frames, int(round(1.0 / env.dt)))
+    print(f"saved video: {args.video} ({len(frames)} frames)")
 
 
 if __name__ == "__main__":

@@ -281,8 +281,8 @@ def test_obs_vec_matches_jax_exactly():
 
 def test_gym_adapter_with_gymnasium():
   """GymEnv over the elbow on the CPU: gymnasium spaces, a seeded reset
-  that repeats, numpy obs, a float reward, two bools, numpy metrics; render
-  raises until the port has a renderer."""
+  that repeats, numpy obs, a float reward, two bools, numpy metrics;
+  render gives the env's frame as (480, 640, 3) uint8 numpy."""
   env = gym_adapter.GymEnv("MtxElbowPoseRandom-v0", device="cpu")
   import gymnasium
   assert isinstance(env, gymnasium.Env)
@@ -299,8 +299,9 @@ def test_gym_adapter_with_gymnasium():
   assert isinstance(terminated, bool) and isinstance(truncated, bool)
   assert all(isinstance(v, np.ndarray) for v in info.values())
   assert "solved" in info
-  with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-    env.render()
+  frame = env.render()
+  assert isinstance(frame, np.ndarray) and frame.dtype == np.uint8
+  assert frame.shape == (480, 640, 3) and frame.any()
 
 
 def test_gym_adapter_without_gymnasium(monkeypatch):

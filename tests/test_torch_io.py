@@ -147,6 +147,12 @@ from myosuite_tpu_torch.utils import (curriculum, examine_env,
                                       trajectories, vector_math)
 from myosuite_tpu_torch.logger import examine_logs, roboset, trace
 from myosuite_tpu_torch import native
+from myosuite_tpu_torch.renderer import Renderer, renderer
+from myosuite_tpu_torch.envs import visual, visual_nets
+from myosuite_tpu_torch.utils import examine_sim, html, render_cams
+frame = Renderer(elbow, 16, 12).render(elbow.reset(
+    torch.Generator().manual_seed(0), 2).data)
+assert frame.shape == (2, 12, 16, 3) and bool(frame.any())
 ik = inverse_kinematics.qpos_from_site_pose(
     elbow.model, elbow.reset(torch.Generator().manual_seed(0), 2).data, 0,
     torch.zeros(2, 3), max_steps=2)
@@ -167,9 +173,10 @@ def test_port_imports_no_jax_and_no_myosuite_tpu():
   torso, the Reaf hand, SAR's Reorient8 and ElbowPoseExoRandom (per-env
   models) and a MyoDM id, takes a PPO training step on the finger,
   restores the committed elbow policy, takes one SAC and one NPG step at a
-  tiny config on the elbow, imports the mesh, robot, utils, logger and
-  native modules and runs two IK iterations, and loads no module of the
-  JAX package, flax, optax, orbax, gymnasium or h5py."""
+  tiny config on the elbow, imports the mesh, robot, utils, logger,
+  native, renderer and visual modules, draws the elbow, runs two IK
+  iterations, and loads no module of the JAX package, flax, optax, orbax,
+  gymnasium or h5py."""
   proc = subprocess.run([sys.executable, "-c", _ISOLATION], cwd=_REPO,
                         capture_output=True, text=True, timeout=300)
   assert proc.returncode == 0, proc.stderr

@@ -452,7 +452,7 @@ def test_playback_of_a_port_trace(tmp_path):
     examine_logs.main(["-t", path, "-e", FINGER, "--mode", "playback",
                        "--device", "cpu"])
   assert "rollout0: 6 steps, recomputed reward sum" in out.getvalue()
-  with pytest.raises(NotImplementedError):
+  with pytest.raises(SystemExit):     # rendering needs --env_name
     examine_logs.main(["-t", path, "--video", "x.mp4"])
 
 
@@ -509,8 +509,8 @@ def test_examine_env_success_rule_matches_jax(monkeypatch):
 
 def test_examine_env_cli_on_the_cpu(tmp_path):
   """examine_env --device cpu -n 4 --horizon 10 on the elbow: the summary
-  line, and a trace of 4 episodes read back from its .mtp file; --video
-  waits for the renderer."""
+  line, and a trace of 4 episodes read back from its .mtp file;
+  --render onscreen raises (the viewer waits for the builder slice)."""
   path = str(tmp_path / "episodes.mtp")
   out = io.StringIO()
   with redirect_stdout(out):
@@ -521,6 +521,6 @@ def test_examine_env_cli_on_the_cpu(tmp_path):
   back = trace.Trace.load(path)
   assert sorted(back.keys()) == [f"rollout{i}" for i in range(4)]
   assert back["rollout0"]["observations"].shape[1:] == (9,)
-  with pytest.raises(NotImplementedError):
-    examine_env.main(["-e", "MtxElbowPoseRandom-v0", "--video", "x.mp4",
+  with pytest.raises(NotImplementedError, match="builder slice"):
+    examine_env.main(["-e", "MtxElbowPoseRandom-v0", "--render", "onscreen",
                       "--device", "cpu"])
