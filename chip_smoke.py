@@ -62,7 +62,13 @@ stepped alone, bit-equal to their rows of the batch), the hand's 4096
 envs drawn (rgb, depth, segmentation at 64 x 64) after 20 Newton
 launches, those frames and the rough leg's and the die's against the CPU
 port's, a row drawn alone against its row, VisualObs's ResNet-18
-features against the CPU and the rendering tools. Prints one JSON line
+features against the CPU and the rendering tools. Phase 15 drives what
+the card runs of the model build: the MJCF builders' length-range sweep
+of every committed model file (its 64 joint samples as one batch through
+the port's kinematics, tendon and transmission on the card, held against
+the file's ranges; the two edited arm files by muscle name), the host
+path helpers on examine_env's device paths, and the builders and the
+model_xml route where MuJoCo cannot be imported. Prints one JSON line
 of
 kernel numbers (with a `shapes` list per env and (nv, nefc)) and, last,
 {"ok": true, "device": {...}}. Exits non-zero, with no result line,
@@ -95,7 +101,7 @@ STEPS = 16               # bench.py's protocol: 16 control steps
 PPO_STEPS = 1            # timed PPO training steps (phase 5)
 LEG_PPO_STEPS = 1        # timed PPO training steps on the leg (phase 7)
 ROUGH_STEPS = 2          # control steps on terrain (phase 7)
-MANIP_STEPS = 4          # control steps of each manipulation env (phase 8)
+MANIP_STEPS = 2          # control steps of each manipulation env (phase 8)
 # phase 8: each model file's env at batch 4096, and its golden env (a Fixed
 # id, or fixed_target=True)
 MANIP = (("hold", "MtxHandObjHoldRandom-v0", "MtxHandObjHoldFixed-v0", None),
@@ -106,7 +112,7 @@ MANIP = (("hold", "MtxHandObjHoldRandom-v0", "MtxHandObjHoldFixed-v0", None),
           {"fixed_target": True}),
          ("key", "MtxHandKeyTurnRandom-v0", "MtxHandKeyTurnFixed-v0", None))
 MYOBASE_STEPS = 4        # control steps of each env of phase 9
-TURN_PAIRS = 3           # phase 9: pairs of plain / Fati hand turns
+TURN_PAIRS = 2           # phase 9: pairs of plain / Fati hand turns
 TURN_STEPS = 4           # control steps a turn
 # phase 9: the envs at batch 4096 (the first three are the new models)
 MYOBASE = (("torso", "MtxTorsoPoseRandom-v0"),
@@ -1387,7 +1393,7 @@ def challenge_phase(dev, build, phase_lib):
 SAC_EPOCHS = 2           # phase 12: timed SAC epochs past learning_starts
 NPG_ITERS = 1            # phase 12: timed NPG iterations after a warm-up
 EVAL_HORIZON = 100       # phase 12: control steps of each pretrained eval
-REFLEX_STEPS = 50        # phase 12: control steps of the reflex rollout
+REFLEX_STEPS = 25        # phase 12: control steps of the reflex rollout
 KERNEL_AT_STEP = 50      # phase 12: the stand eval's step whose solve is
 #                          taken apart (kernel against its plain version)
 
@@ -2269,10 +2275,11 @@ def sink_check(dev, build):
   return dict(mb=size / 1e6, mb_per_s=size / 1e6 / seconds)
 
 
-def examine_env_check(dev):
+def examine_env_check(dev, trace_path):
   """13(d), examine_env on the card as a user runs it: the shipped elbow
-  policy over 64 episodes; success beside the JAX package's eval, gated
-  as phase 12 gates it."""
+  policy over 64 episodes, saved as a trace at `trace_path` (phase 15
+  reads it); success beside the JAX package's eval, gated as phase 12
+  gates it."""
   from myosuite_tpu_torch.agents import pretrained
   from myosuite_tpu_torch.envs.registry import ASSETS
   env_id = "MtxElbowPoseRandom-v0"
@@ -2281,7 +2288,7 @@ def examine_env_check(dev):
   proc = subprocess.run(
       [sys.executable, "-m", "myosuite_tpu_torch.utils.examine_env", "-e",
        env_id, "-p", pretrained.checkpoint_dir(env_id), "-n", "64",
-       "--device", str(dev)],
+       "--device", str(dev), "--trace", trace_path],
       cwd=root, capture_output=True, text=True, timeout=MESH_TIMEOUT)
   seconds = time.perf_counter() - t0
   if proc.returncode != 0:
@@ -2297,7 +2304,7 @@ def examine_env_check(dev):
         f"+-{bound:.2f}); {seconds:.1f} s with the process start")
   if not abs(succ - 100.0 * p_jax) <= bound:
     raise AssertionError(f"examine_env success {succ} against {p_jax}")
-  return dict(success=succ, seconds=seconds)
+  return dict(success=succ, seconds=seconds, trace=trace_path)
 
 
 def mesh_tools_phase(dev, build):
@@ -2314,7 +2321,7 @@ def mesh_tools_phase(dev, build):
   with watch.part("sink"):
     sink = sink_check(dev, build)
   with watch.part("examine_env"):
-    exam = examine_env_check(dev)
+    exam = examine_env_check(dev, os.path.join(build, "examine_env.mtp"))
   watch.report("phase 13")
   return dict(nccl=nccl, gloo=gloo, tools=tools, sink=sink,
               examine_env=exam)
@@ -2546,6 +2553,200 @@ def render_tools_check(dev, build):
   return {k: list(v.shape) for k, v in out.items()}
 
 
+SWEEP_TOL = 5e-6         # phase 15: swept against stored length ranges (m)
+NAMED_TOL = 1e-6         # phase 15: an edited arm file's ranges by name (m)
+PATHS_HORIZON = 50       # phase 15: truncate_paths' horizon
+
+
+def sweep_check(dev):
+  """15(a), the builders' sweep: for every committed model file whose MJCF
+  is finalize_muscles of a builder string, the 64 joint samples of its
+  sweep run as one batch through the port's kinematics, com_pos, tendon
+  and transmission on the card, padded as finalize_muscles pads; every
+  muscle within SWEEP_TOL of the file's actuator_lengthrange, but for
+  sweep.MIRRORED_ROWS (where the JAX engine's tendon path, which the port
+  follows, leaves MuJoCo's), which must be exactly the rows that miss and
+  are held against the CPU port's sweep instead. The two edited arm files
+  are held by muscle name against myoarm.npz's ranges."""
+  from myosuite_tpu_torch.envs.registry import ASSETS
+  from myosuite_tpu_torch.mjcf import export, sweep
+  from myosuite_tpu_torch.physics import io as physics_io
+  t0 = time.perf_counter()
+  path = lambda n: os.path.join(ASSETS, n)
+  arm, arm_extra = physics_io.load_model(path("myoarm.npz"), dev)
+  worst, named, mirrored, bad = (0.0, ""), (0.0, ""), [], []
+  nfiles = 0
+  for name in sorted(export.SOURCES):
+    model, extra = physics_io.load_model(path(name), dev)
+    if name in export.EDITS:
+      gap = sweep.named_range_gap(model, extra["actuator_names"], arm,
+                                  arm_extra["actuator_names"])
+      named = max(named, (gap, name))
+      if not gap <= NAMED_TOL:
+        bad.append(f"{name} by name {gap:.3e}")
+      continue
+    nfiles += 1
+    rows, swept, gaps = sweep.sweep_gaps(model)
+    want = sweep.MIRRORED_ROWS.get(name, ())
+    mirror = np.isin(rows, want)
+    if (~mirror).any():
+      worst = max(worst, (float(gaps[~mirror].max()), name))
+    missed = tuple(int(r) for r in rows[gaps > SWEEP_TOL])
+    if missed != want:
+      bad.append(f"{name} misses rows {missed}, want {want}")
+    if mirror.any():
+      cpu = physics_io.load_model(path(name), "cpu")[0]
+      _, cpu_swept, _ = sweep.sweep_gaps(cpu)
+      mirrored.append((name, int(mirror.sum()), float(gaps[mirror].max()),
+                       float(np.abs(swept[mirror] - cpu_swept[mirror]).max())))
+  seconds = time.perf_counter() - t0
+  card_cpu = max((m[3] for m in mirrored), default=0.0)
+  mirror_note = (
+      f"{sum(m[1] for m in mirrored)} mirrored rows in {len(mirrored)} "
+      f"files, MuJoCo's ranges {max(m[2] for m in mirrored):.4f} m away, "
+      f"card against CPU {card_cpu:.3e} m" if mirrored
+      else "no mirrored rows")
+  print(f"  15a sweep: {nfiles} files swept on the card, every muscle but "
+        f"the mirrored rows within {SWEEP_TOL:g} m of its file; largest gap "
+        f"{worst[0]:.3e} m ({worst[1]}); {mirror_note}; the edited arm "
+        f"files by name within {named[0]:.3e} m ({named[1]}); "
+        f"{seconds:.1f} s")
+  if card_cpu > SWEEP_TOL:
+    bad.append(f"mirrored rows: card against CPU {card_cpu:.3e}")
+  if worst[0] > SWEEP_TOL or bad:
+    raise AssertionError(f"sweep: largest gap {worst}; {bad}")
+  return dict(files=nfiles, max_gap=worst[0], file=worst[1],
+              named_gap=named[0], seconds=seconds)
+
+
+def host_paths_check(dev, trace_path):
+  """15(b), the host helpers on the card: the paths of phase 13's
+  examine_env (the shipped elbow policy, 64 episodes, each cut at its
+  first done; read from the trace it saved) as device tensors; path_stats
+  and truncate_paths on them equal to their results on numpy copies, and
+  paths_to_trace's .mtp round trip through the native sink bit-equal."""
+  from myosuite_tpu_torch import native
+  from myosuite_tpu_torch.logger.trace import Trace
+  from myosuite_tpu_torch.utils import paths_utils
+  saved = Trace.load(trace_path)
+  keys = (("obs", "observations"), ("reward", "rewards"),
+          ("solved", "solved"))
+  host = [{k: saved[g][key] for k, key in keys} for g in
+          sorted(saved.keys(), key=lambda g: int(g[len("rollout"):]))]
+  paths = [{k: torch.tensor(v, device=dev) for k, v in p.items()}
+           for p in host]
+  lengths = [len(p["reward"]) for p in host]
+  stats = paths_utils.path_stats(paths)
+  same_stats = stats == paths_utils.path_stats(host)
+  cut = paths_utils.truncate_paths(paths, PATHS_HORIZON)
+  same_cut = all(v.device.type == dev.type and np.array_equal(
+      v.cpu().numpy(), h[k]) for p, h in zip(
+          cut, paths_utils.truncate_paths(host, PATHS_HORIZON))
+      for k, v in p.items())
+  out = os.path.splitext(trace_path)[0] + "_paths.mtp"
+  paths_utils.paths_to_trace(paths).save(out)
+  back = Trace.load(out)
+  os.unlink(out)
+  same_trace = all(np.array_equal(back[f"rollout{i}"][k], v)
+                   for i, h in enumerate(host) for k, v in h.items())
+  print(f"  15b host helpers: phase 13's {len(paths)} examine_env paths on "
+        f"the card ({min(lengths)}-{max(lengths)} steps); path_stats equal "
+        f"{same_stats} (success {stats['success_rate']:.3f}, return "
+        f"{stats['return_mean']:.3f}); truncate_paths at {PATHS_HORIZON} "
+        f"equal {same_cut}; .mtp round trip bit-equal {same_trace} "
+        f"(native_available {native.native_available()})")
+  if not (same_stats and same_cut and same_trace
+          and native.native_available()):
+    raise AssertionError("host helpers on the card")
+  return stats
+
+
+NO_MUJOCO = r"""
+import sys
+sys.modules["mujoco"] = None
+import myosuite_tpu_torch
+import myosuite_tpu_torch.mjcf
+from myosuite_tpu_torch.mjcf import builder, hand
+assert hand.build_hand().count("<muscle ") == 39
+try:
+  myosuite_tpu_torch.make("MtxElbowPoseRandom-v0", device="cpu",
+                          overrides={"model_xml": builder.build_elbow()})
+except ImportError as e:
+  assert "MuJoCo" in str(e), e
+  print("raised:", e)
+else:
+  raise AssertionError("model_xml compiled without MuJoCo")
+"""
+
+
+def no_mujoco_check(dev):
+  """15(c), what the card cannot run: whether MuJoCo imports here; in a
+  subprocess with mujoco unimportable, the builders import and build the
+  hand, and the model_xml route raises the MuJoCo ImportError. Where
+  MuJoCo is here, the route on the elbow's MJCF at batch BATCH is held
+  bit-equal to the committed file's env over 2 control steps."""
+  import myosuite_tpu_torch
+  try:
+    import mujoco
+    have = f"yes ({mujoco.__version__})"
+  except ImportError:
+    mujoco, have = None, "no"
+  root = os.path.dirname(os.path.abspath(__file__))
+  proc = subprocess.run([sys.executable, "-c", NO_MUJOCO], cwd=root,
+                        capture_output=True, text=True, timeout=MESH_TIMEOUT)
+  if proc.returncode != 0:
+    raise AssertionError(f"builders without MuJoCo: {proc.stderr[-3000:]}")
+  print(f"  15c MuJoCo importable on this machine: {have}; without it the "
+        f"builders import and build the hand, and the model_xml route "
+        f"{proc.stdout.strip()}")
+  if mujoco is None:
+    try:
+      myosuite_tpu_torch.make("MtxElbowPoseRandom-v0", device=dev,
+                              overrides={"model_xml": "<mujoco/>"})
+    except ImportError as e:
+      if "MuJoCo" not in str(e):
+        raise
+      return dict(mujoco=False)
+    raise AssertionError("model_xml compiled without MuJoCo")
+  from myosuite_tpu_torch.mjcf import export
+  envs = [myosuite_tpu_torch.make("MtxElbowPoseRandom-v0", device=dev,
+                                  overrides=ov)
+          for ov in ({}, {"model_xml": export.model_xml("myoelbow.npz")})]
+  states = []
+  for env in envs:
+    gen = torch.Generator(dev).manual_seed(0)
+    state = env.reset(gen, BATCH)
+    for _ in range(2):
+      state = env.step(state, torch.rand(BATCH, env.action_size,
+                                         generator=gen, device=dev))
+    states.append(state)
+  same = all(torch.equal(getattr(states[0].data, k), getattr(states[1].data,
+                                                             k))
+             for k in ("qpos", "qvel", "act"))
+  print(f"  15c the elbow from its own MJCF at batch {BATCH}, 2 control "
+        f"steps: bit-equal to the committed file's env {same}")
+  if not same:
+    raise AssertionError("model_xml route differs from the committed file")
+  return dict(mujoco=True)
+
+
+def model_build_phase(dev, examine_trace):
+  """Phase 15: the model build layer (MJCF builders, export, host helpers)
+  as far as the card runs it; `examine_trace` is the trace phase 13's
+  examine_env saved."""
+  watch = Stopwatch()
+  print("phase 15 model build: the builders' sweep, the host helpers, "
+        "MuJoCo's absence")
+  with watch.part("sweep"):
+    swept = sweep_check(dev)
+  with watch.part("host helpers"):
+    host_paths_check(dev, examine_trace)
+  with watch.part("no MuJoCo"):
+    no_mujoco_check(dev)
+  watch.report("phase 15")
+  return swept
+
+
 def main():
   parser = argparse.ArgumentParser()
   parser.add_argument("--parent", help="checkout whose Newton kernel to "
@@ -2707,18 +2908,22 @@ def main():
 
   mark(12)
   # 13. scale-out over ranks and the user tools
-  mesh_tools_phase(dev, build)
+  tools = mesh_tools_phase(dev, build)
 
   mark(13)
   # 14. C5 and the renderer
   rendered = render_phase(dev, build, opts.parent)
 
   mark(14)
+  # 15. the model build: the builders' sweep and the host helpers
+  model_build_phase(dev, tools["examine_env"]["trace"])
+
+  mark(15)
   print("phase ends (s since the start): " + ", ".join(
       f"{n} {t:.0f}" for n, t in ends))
   # the card again, on one of the last lines (the head of a long output
   # may be cut off where it is read)
-  print(f"phases 1-14 in {time.perf_counter() - t_start:.0f} s")
+  print(f"phases 1-15 in {time.perf_counter() - t_start:.0f} s")
   print(f"nvidia-smi: {smi}")
   print(json.dumps({"kernels": [{
       "name": "newton_solver", "route": "cuda",

@@ -5,7 +5,9 @@ tensors all lead with the env axis. Episode bookkeeping (truncation,
 boundaries) happens on the device with no host round trip. Two muscle
 conditions live here: sarcopenia, which weakens the model's muscles when
 the config asks for it, and `ReafferentationWrapper`, which sends one
-actuator's command to another.
+actuator's command to another. An env's host `mj_model` is compiled only
+when something asks for it, so that a machine without MuJoCo steps the
+committed model files.
 """
 
 from __future__ import annotations
@@ -95,6 +97,27 @@ class MyoEnv(abc.ABC):
     if config.get("muscle_condition") == "sarcopenia":
       self._model = _apply_sarcopenia(
           self._model, config.get("sarcopenia_weakness", 0.5))
+    self._mj_model = None
+
+  @property
+  def mj_model(self):
+    """The env's host `mujoco.MjModel` (for a viewer or an inspection; the
+    step never reads it), compiled at first use from the config's
+    "model_xml" or from the MJCF that `mjcf.export` builds for the env's
+    model file ("model_file"), with the configured timestep. Needs MuJoCo:
+    without it, raises an ImportError that names MuJoCo."""
+    if self._mj_model is None:
+      from myosuite_tpu_torch.mjcf import export
+      xml = self._config.get("model_xml")
+      if xml is None:
+        if "model_file" not in self._config:
+          raise ValueError("the env has no model_xml or model_file in its "
+                           "config")
+        xml = export.model_xml(self._config["model_file"])
+      mj = physics_io.compile_mjcf(xml)
+      mj.opt.timestep = float(self._config["sim_dt"])
+      self._mj_model = mj
+    return self._mj_model
 
   @property
   def model(self) -> Model:

@@ -11,8 +11,8 @@ grasp posture for the hand over the scene file's hinge ranges.
 
 Each object's scene (the palm-up myoHand and the object's proxy: sphere
 and capsule objects are primitives, box and cylinder objects convex mesh
-hulls) is a compressed model file `assets/myodm/<object>.npz`, exported
-once through the JAX package and read at `make`, never at import. Each
+hulls) is a compressed model file `assets/myodm/<object>.npz`, exported from
+`scene_xml` (`mjcf.export`) and read at `make`, never at import. Each
 file records its (nv, nefc, ncon_max) under "myodm_nv", "myodm_nefc" and
 "myodm_ncon_max", and the object site's id under "cfg_myodm_object_site".
 """
@@ -198,6 +198,71 @@ def scene_path(obj_name: str) -> str:
   return os.path.join(ASSETS, f"{obj_name}.npz")
 
 
+def _hull_vertices(gtype: str, size_str: str):
+  """Convex-hull vertex cloud of a box or cylinder proxy (None: a sphere
+  or capsule stays a primitive)."""
+  dims = [float(x) for x in size_str.split()]
+  if gtype == "box":
+    sx, sy, sz = dims
+    return [(ix * sx, iy * sy, iz * sz)
+            for ix in (-1, 1) for iy in (-1, 1) for iz in (-1, 1)]
+  if gtype == "cylinder":
+    r, h = dims
+    return [(r * np.cos(a), r * np.sin(a), s * h)
+            for s in (-1, 1)
+            for a in np.linspace(0.0, 2 * np.pi, 12, endpoint=False)]
+  return None
+
+
+def object_snippet(obj_name: str) -> str:
+  """MJCF body of a GRAB object's proxy, for `mjcf.hand.build_hand`: box
+  and cylinder shapes become convex mesh geoms, spheres and capsules stay
+  primitives."""
+  gtype, size, mass = GRAB_OBJECTS[obj_name]
+  verts = _hull_vertices(gtype, size)
+  if verts is None:
+    geom = (f'<geom name="object_geom" type="{gtype}" size="{size}" '
+            f'mass="{mass}"')
+  else:
+    geom = (f'<geom name="object_geom" type="mesh" mesh="grab_{obj_name}" '
+            f'mass="{mass}"')
+  return f"""
+    <body name="object" pos="{{ox}} {{oy}} {{oz}}">
+      <freejoint name="object_free"/>
+      {geom}
+            contype="2" conaffinity="5" friction="1 0.01 0.0005"
+            solref="0.015 1" condim="3"/>
+      <site name="object_site" pos="0 0 0" size="0.005"/>
+    </body>
+"""
+
+
+def object_asset(obj_name: str) -> str:
+  """<asset> mesh entry of the object's hull, '' for a primitive."""
+  gtype, size, _ = GRAB_OBJECTS[obj_name]
+  verts = _hull_vertices(gtype, size)
+  if verts is None:
+    return ""
+  flat = "  ".join(f"{x:.5f} {y:.5f} {z:.5f}" for x, y, z in verts)
+  return f'<mesh name="grab_{obj_name}" vertex="{flat}"/>'
+
+
+def scene_builder_xml(obj_name: str) -> str:
+  """The palm-up myoHand with `obj_name`'s proxy, before its muscles'
+  length ranges are swept (the JAX package's scene, whose snippet and
+  asset the port passes to `build_hand` as arguments)."""
+  from myosuite_tpu_torch.mjcf import hand
+  return hand.build_hand(palm_up=True, obj=f"grab_{obj_name}",
+                         object_snippet=object_snippet(obj_name),
+                         object_asset=object_asset(obj_name))
+
+
+def scene_xml(obj_name: str) -> str:
+  """The scene's MJCF with its muscles' length ranges (needs MuJoCo)."""
+  from myosuite_tpu_torch.mjcf import builder
+  return builder.finalize_muscles(scene_builder_xml(obj_name))
+
+
 def _smoothstep(u: np.ndarray) -> np.ndarray:
   u = np.clip(u, 0.0, 1.0)
   return u * u * (3.0 - 2.0 * u)
@@ -323,11 +388,18 @@ def object_reference(nq_hand: int, random: bool, device=None):
 
 
 def _load(obj_name: str, device, overrides, **cfg):
-  from myosuite_tpu_torch.envs.registry import _deep_merge
-  model, extra = physics_io.load_model(scene_path(obj_name), device)
+  """(model, config, scene): the env's model and config, and the committed
+  scene's model, whose hand the reference follows (the same model but
+  under a "model_xml" override, as the JAX package draws the reference
+  from its default scene)."""
+  from myosuite_tpu_torch.envs.registry import _deep_merge, _load_model
+  path = scene_path(obj_name)
+  model, extra, overrides = _load_model(path, device, overrides)
+  scene = (model if overrides.get("model_xml") is None
+           else physics_io.load_model(path, device)[0])
   config = dict(TRACK_CONFIG, object_site=int(extra["cfg_myodm_object_site"]),
                 **cfg)
-  return model, _deep_merge(config, overrides)
+  return model, _deep_merge(config, overrides), scene
 
 
 def make_track_env(suffix: str, obj_name: str, verb: str, device,
@@ -335,16 +407,17 @@ def make_track_env(suffix: str, obj_name: str, verb: str, device,
   """The track id MtxHand<suffix>-v0: `obj_name`'s scene, `verb`'s
   motion."""
   from myosuite_tpu_torch.envs.tracking import ObjTrackEnv
-  model, config = _load(obj_name, device, overrides)
+  model, config, scene = _load(obj_name, device, overrides)
   return ObjTrackEnv(model, config,
-                     make_track_reference(model, verb, model.device))
+                     make_track_reference(scene, verb, model.device))
 
 
 def make_object_env(obj_name: str, random: bool, device, overrides):
   """The object-pose id MtxHand<Object>{Fixed,Random}-v0."""
   from myosuite_tpu_torch.envs.tracking import ObjTrackEnv
-  model, config = _load(obj_name, device, overrides, max_episode_steps=100)
-  return ObjTrackEnv(model, config, object_reference(model.nq - 7, random,
+  model, config, scene = _load(obj_name, device, overrides,
+                               max_episode_steps=100)
+  return ObjTrackEnv(model, config, object_reference(scene.nq - 7, random,
                                                      model.device))
 
 

@@ -9,6 +9,8 @@ with `register_with_variants` also has an `MtxFati*` id (wrapped in the
 force). Overrides merge into an env's config recursively, as
 `ConfigDict.update` merges them in the JAX package. The MyoDM ids
 (`envs/myodm.py`) load their scene file at `make`, never at import.
+An override "model_xml" runs a user's MJCF in place of the id's model
+file (`_load_model`; compiled on the host, so MuJoCo is needed there).
 """
 
 from __future__ import annotations
@@ -185,7 +187,8 @@ def register_env_variant(env_id: str, variants: Dict[str, Any],
                          silent: bool = False) -> str:
   """Register a variant of a registered env: `variants` maps dot-path keys
   ("reward_weights.pose", "max_episode_steps") to values, nested and merged
-  into the env's config. The id is made from the keys when not given.
+  into the env's config. The id is made from the keys when not given, and
+  announced with an INFO prompt (`utils.prompt_utils`) unless `silent`.
   Returns the new id."""
   base = resolve(env_id)
   if base not in _REGISTRY:
@@ -209,7 +212,8 @@ def register_env_variant(env_id: str, variants: Dict[str, Any],
 
   register(variant_id, factory)
   if not silent:
-    print(f"Registered env variant: {variant_id}")
+    from myosuite_tpu_torch.utils.prompt_utils import prompt
+    prompt(f"Registered env variant: {variant_id}", type_="INFO")
   return variant_id
 
 
@@ -299,9 +303,28 @@ def task_config_from_npz(extra: Dict[str, np.ndarray],
   return cfg
 
 
+def _load_model(path: str, device, overrides: Dict[str, Any]):
+  """(Model, extra, overrides) of the committed model file at `path`:
+  `overrides` gains "model_file", the file's name under ASSETS, from which
+  the env's host `mj_model` is built. Where `overrides` holds "model_xml",
+  the model is that MJCF compiled on the host (MuJoCo needed, else an
+  ImportError) with the file's task constants and the model entries (ids,
+  addresses, names, reflex tables) derived from the user's model
+  (`mjcf.export.load_xml`), as the JAX package's env rebuilds from
+  `config.model_xml`."""
+  name = os.path.relpath(path, ASSETS)
+  overrides = {**overrides, "model_file": name}
+  if overrides.get("model_xml") is None:
+    model, extra = physics_io.load_model(path, device)
+  else:
+    from myosuite_tpu_torch.mjcf import export
+    model, extra = export.load_xml(overrides["model_xml"], name, device)
+  return model, extra, overrides
+
+
 def _reach(path, prefix, device, overrides, fixed=False):
   from myosuite_tpu_torch.envs.reach import ReachEnv
-  model, extra = physics_io.load_model(path, device)
+  model, extra, overrides = _load_model(path, device, overrides)
   cfg = reach_config_from_npz(extra, prefix)
   cfg["fixed_target"] = fixed
   return ReachEnv(model, _deep_merge(cfg, overrides))
@@ -309,7 +332,7 @@ def _reach(path, prefix, device, overrides, fixed=False):
 
 def _pose(path, device, overrides, fixed=False):
   from myosuite_tpu_torch.envs.pose import PoseEnv
-  model, extra = physics_io.load_model(path, device)
+  model, extra, overrides = _load_model(path, device, overrides)
   cfg = pose_config_from_npz(extra)
   cfg["fixed_target"] = fixed
   return PoseEnv(model, _deep_merge(cfg, overrides))
@@ -332,13 +355,15 @@ def _hand_pose(device, overrides, fixed=False, asl=None):
   """The hand pose task over the hand's own joint ranges; `asl` picks one
   of ASL_PATTERNS as the fixed target."""
   from myosuite_tpu_torch.envs.pose import PoseEnv
-  model, extra = physics_io.load_model(HAND_REACH_NPZ, device)
-  rng = model.jnt_range.cpu().numpy()
+  model, _, overrides = _load_model(HAND_REACH_NPZ, device, overrides)
+  # the targets span the default hand's ranges, also under a model_xml
+  with np.load(HAND_REACH_NPZ) as z:
+    rng, names = z["jnt_range"], [str(n) for n in z["jnt_names"]]
   cfg = dict(POSE_DEFAULTS, target_jnt_lo=rng[:, 0], target_jnt_hi=rng[:, 1],
              pose_thd=1.0, fixed_target=fixed)
   if asl is not None:
     cfg.update(fixed_target=True, target_jnt_value=asl_target(
-        [str(n) for n in extra["jnt_names"]], rng, ASL_PATTERNS[asl]))
+        names, rng, ASL_PATTERNS[asl]))
   return PoseEnv(model, _deep_merge(cfg, overrides))
 
 
@@ -355,7 +380,7 @@ def _reaf_hand_pose(device, overrides):
 def _elbow_exo(device, overrides, fixed=False):
   """The elbow pose task with a payload and an exo assist torque."""
   from myosuite_tpu_torch.envs.pose import ElbowExoPoseEnv
-  model, extra = physics_io.load_model(ELBOW_NPZ, device)
+  model, extra, overrides = _load_model(ELBOW_NPZ, device, overrides)
   names = [str(n) for n in extra["body_names"]]
   cfg = dict(pose_config_from_npz(extra), fixed_target=fixed,
              **EXO_CONFIG)
@@ -367,7 +392,8 @@ def _sar(device, overrides, variant="8"):
   """The SAR reorientation task of `variant`'s geometry table, on the pen
   scene with the pen task's goal centre and reward weights."""
   from myosuite_tpu_torch.envs.sar import ReorientSAREnv
-  model, extra = physics_io.load_model(MANIP_NPZ["pen"], device)
+  model, extra, overrides = _load_model(MANIP_NPZ["pen"], device,
+                                       overrides)
   cfg = task_config_from_npz(extra)
   del cfg["goal_pitch_limit"]
   cfg.update(fixed_target=False, geom_variant=variant)
@@ -378,10 +404,12 @@ def _track(which, device, overrides):
   """The cyclic tracking task of the finger or the hand model."""
   from myosuite_tpu_torch.envs.tracking import TrackEnv, make_cyclic_reference
   path = FINGER_NPZ if which == "finger" else HAND_REACH_NPZ
-  model, _ = physics_io.load_model(path, device)
+  model, _, overrides = _load_model(path, device, overrides)
   cfg = dict(CYCLIC_TRACK_CONFIG, **TRACK_THRESHOLDS[which])
-  ref = make_cyclic_reference(model.jnt_range.cpu().numpy(), model.nq,
-                              device=model.device)
+  # the reference spans the default model's ranges, also under a model_xml
+  with np.load(path) as z:
+    jnt_range, nq = z["jnt_range"], len(z["qpos0"])
+  ref = make_cyclic_reference(jnt_range, nq, device=model.device)
   return TrackEnv(model, _deep_merge(cfg, overrides), ref)
 
 
@@ -390,8 +418,8 @@ def _leg(device, overrides, kind="walk"):
   terrain ("rough", "hilly", "stairs", "flat", "random")."""
   from myosuite_tpu_torch.envs import locomotion
   terrain = kind not in ("walk", "stand")
-  model, extra = physics_io.load_model(
-      LEG_TERRAIN_NPZ if terrain else LEG_NPZ, device)
+  model, extra, overrides = _load_model(
+      LEG_TERRAIN_NPZ if terrain else LEG_NPZ, device, overrides)
   cfg = walk_config_from_npz(extra)
   reflex = reflex_tables_from_npz(extra)
   if reflex is not None:
@@ -408,7 +436,7 @@ def _leg(device, overrides, kind="walk"):
 def _manip(obj, device, overrides, fixed=False):
   """The in-hand manipulation task of the model file of `obj`."""
   from myosuite_tpu_torch.envs import manipulation
-  model, extra = physics_io.load_model(MANIP_NPZ[obj], device)
+  model, extra, overrides = _load_model(MANIP_NPZ[obj], device, overrides)
   cfg = dict(task_config_from_npz(extra), fixed_target=fixed)
   return manipulation.ENVS[obj](model, _deep_merge(cfg, overrides))
 
@@ -417,7 +445,8 @@ def _challenge(task, device, overrides, role="chase"):
   """The MyoChallenge task `task` on its model file; the leg tasks take
   the walk config too, and ChaseTag the agent's role."""
   from myosuite_tpu_torch.envs import challenge
-  model, extra = physics_io.load_model(CHALLENGE_NPZ[task], device)
+  model, extra, overrides = _load_model(CHALLENGE_NPZ[task], device,
+                                       overrides)
   cfg = task_config_from_npz(extra, "cfg_chal_")
   if "cfg_walk_ctrl_dt" in extra:
     cfg = {**walk_config_from_npz(extra), **cfg}

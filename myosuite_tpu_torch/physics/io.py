@@ -1,8 +1,10 @@
 """Model loading: MJCF -> field dict -> `Model`, and `.npz` round trips.
 
 MuJoCo's compiler is the MJCF front end and runs only on the host, inside
-`put_model`; it is imported there and in `model_fields` (for the default
-free camera), and nowhere else. `model_fields` turns a
+`compile_mjcf` (which `put_model` and every other compile of the port
+call); MuJoCo is imported through `import_mujoco`, which raises an
+ImportError that names it where it is missing, and in `model_fields` (for
+the default free camera). `model_fields` turns a
 compiled `mujoco.MjModel` into a dict of plain numpy arrays, and
 `model_from_numpy` builds the torch `Model` from such a dict. `save_model`
 writes the dict as `.npz`, so a machine without MuJoCo loads a model that
@@ -132,14 +134,31 @@ def _wrap_sidesites(m) -> np.ndarray:
   return side
 
 
+def import_mujoco():
+  """The `mujoco` module, or an ImportError that names MuJoCo: compiling
+  MJCF needs the host MuJoCo compiler, which a machine that only steps
+  the committed model files (the card's) may lack."""
+  try:
+    import mujoco
+  except ImportError as e:
+    raise ImportError(
+        "compiling MJCF needs MuJoCo (`import mujoco` failed: "
+        f"{e}); the committed model files load without it") from e
+  return mujoco
+
+
+def compile_mjcf(xml: str):
+  """The host `mujoco.MjModel` of an MJCF string."""
+  return import_mujoco().MjModel.from_xml_string(xml)
+
+
 def put_model(mj, device=None) -> Model:
   """`Model` of a compiled `mujoco.MjModel`, or of an MJCF string.
 
-  The only place the port touches MuJoCo; the step path never does.
+  The step path never touches MuJoCo.
   """
   if isinstance(mj, str):
-    import mujoco
-    mj = mujoco.MjModel.from_xml_string(mj)
+    mj = compile_mjcf(mj)
   return model_from_numpy(model_fields(mj), device)
 
 

@@ -478,12 +478,65 @@ def render_qpos_sequence(env, qpos_seq, path: str, fps: int = 50,
 
 
 class PassiveViewer:
-  """The JAX package's onscreen viewer needs a display, MuJoCo's viewer
-  and a host `MjModel`; the port has none of them until the MJCF builders
-  are ported (the builder slice). Use `Renderer` offscreen."""
+  """Interactive onscreen viewer of one row of a batch, in a
+  `mujoco.viewer` window (the JAX package's `PassiveViewer`): SPACE
+  pauses. The env's host `mj_model` and an `MjData` are only the window's
+  drawing target; the dynamics stay on the device.
+
+  Needs a display and MuJoCo: on Linux without DISPLAY it raises
+  RuntimeError (GLFW would abort the process), without MuJoCo an
+  ImportError. Callers fall back to offscreen.
+  """
 
   def __init__(self, env, realtime: bool = True):
-    raise NotImplementedError(
-        "PassiveViewer needs a display, MuJoCo's viewer and a host MjModel, "
-        "which the port gets with the MJCF builders (the builder slice); "
-        "render offscreen with Renderer or --video instead")
+    import os
+    import sys
+    if sys.platform.startswith("linux") and not os.environ.get("DISPLAY"):
+      raise RuntimeError("no DISPLAY; onscreen viewer needs an X display")
+    mujoco = physics_io.import_mujoco()
+    import mujoco.viewer
+    self._mujoco = mujoco
+    self._mj_model = env.mj_model
+    self._mj_data = mujoco.MjData(self._mj_model)
+    self._dt = float(env.dt) if hasattr(env, "dt") else 0.02
+    self._realtime = realtime
+    self._paused = False
+    self._viewer = mujoco.viewer.launch_passive(
+        self._mj_model, self._mj_data, key_callback=self._on_key)
+
+  def _on_key(self, keycode):
+    if keycode == 32:  # SPACE: toggle pause
+      self._paused = not self._paused
+
+  def is_running(self) -> bool:
+    return self._viewer.is_running()
+
+  def sync(self, data, row: int = 0) -> None:
+    """Show row `row` of a batched Data: its qpos, qvel and mocap poses are
+    copied to the host and `mj_forward`ed; blocks while paused, and paces
+    at the env's dt when realtime."""
+    import time
+    host = lambda x: x[row].detach().cpu().numpy().astype(np.float64)
+    d = self._mj_data
+    d.qpos[:] = host(data.qpos)
+    d.qvel[:] = host(data.qvel)
+    n = self._mj_model.nmocap
+    if n:
+      d.mocap_pos[:] = host(data.mocap_pos)[:n]
+      d.mocap_quat[:] = host(data.mocap_quat)[:n]
+    self._mujoco.mj_forward(self._mj_model, d)
+    self._viewer.sync()
+    while self._paused and self._viewer.is_running():
+      time.sleep(0.05)
+      self._viewer.sync()
+    if self._realtime:
+      time.sleep(self._dt)
+
+  def close(self):
+    self._viewer.close()
+
+  def __enter__(self):
+    return self
+
+  def __exit__(self, *exc):
+    self.close()

@@ -10,8 +10,11 @@ JAX CLI runs the episodes one after another; the port runs all N as one
 batch on the device and cuts each episode at its first done afterwards.
 --video draws every episode's steps, one after another, with the port's
 ray caster (`renderer`) as one batch and writes them with imageio (an mp4
-needs imageio's ffmpeg, a .gif only pillow). --render onscreen raises:
-the onscreen viewer waits for the MJCF builders' port.
+needs imageio's ffmpeg, a .gif only pillow). --render onscreen shows the
+first episode (row 0 of the batch) step by step in MuJoCo's passive viewer
+(`renderer.PassiveViewer`); where it cannot open (no display, no MuJoCo)
+it prints why and runs headless, as the JAX CLI does: only the viewer is
+given up, never the device.
 
 Usage:
   python -m myosuite_tpu_torch.utils.examine_env -e MtxElbowPoseRandom-v0 \\
@@ -35,12 +38,15 @@ POSE_FIELDS = ("qpos", "mocap_pos", "mocap_quat")
 
 def rollout_episodes(env, policy_fn: Callable, num_episodes: int,
                      horizon: int, generator: torch.Generator,
-                     poses: bool = False) -> Dict[str, torch.Tensor]:
+                     poses: bool = False,
+                     viewer=None) -> Dict[str, torch.Tensor]:
   """`horizon` control steps of `num_episodes` fresh episodes as one batch
   of the plain env, actions policy_fn(obs, generator): the stacked
   (T, B, ...) obs, reward, solved and done after each step; with `poses`
   also the POSE_FIELDS after each step and the reset's heightfields
-  ("hfield", (B, nrow, ncol)), which a rendering reads."""
+  ("hfield", (B, nrow, ncol)), which a rendering reads. A `viewer`
+  (`renderer.PassiveViewer`) shows row 0 after each step while its window
+  is open."""
   rec = {"obs": [], "reward": [], "solved": [], "done": []}
   if poses:
     rec.update({k: [] for k in POSE_FIELDS})
@@ -54,6 +60,8 @@ def rollout_episodes(env, policy_fn: Callable, num_episodes: int,
       rec["solved"].append(state.metrics.get(
           "solved", torch.zeros_like(state.reward)))
       rec["done"].append(state.done)
+      if viewer is not None and viewer.is_running():
+        viewer.sync(state.data)
       if poses:
         for k in POSE_FIELDS:
           rec[k].append(getattr(state.data, k))
@@ -117,9 +125,13 @@ def main(argv=None):
   import myosuite_tpu_torch
 
   env = myosuite_tpu_torch.make(args.env_name, device=args.device)
+  viewer = None
   if args.render == "onscreen":
     from myosuite_tpu_torch.renderer import PassiveViewer
-    PassiveViewer(env)
+    try:
+      viewer = PassiveViewer(env)
+    except Exception as e:   # headless box: report and run headless
+      print(f"onscreen viewer unavailable ({e}); running headless")
   horizon = args.horizon or env.max_episode_steps
   if args.policy_path:
     from myosuite_tpu_torch.agents import pretrained
@@ -133,7 +145,9 @@ def main(argv=None):
 
   gen = torch.Generator(env.device).manual_seed(args.seed)
   rec = rollout_episodes(env, policy_fn, args.num_episodes, horizon, gen,
-                         poses=bool(args.video))
+                         poses=bool(args.video), viewer=viewer)
+  if viewer is not None:
+    viewer.close()
   lengths = episode_lengths(rec["done"]).tolist()
   won = successes(rec["solved"], rec["done"])
   host = {k: v.cpu().numpy() for k, v in rec.items()}

@@ -6,7 +6,7 @@ port's physics with zero or uniform random controls, report the step's
 time and the state's drift, and with --png draw the final state with the
 port's ray caster (`renderer.Renderer`). -m compiles the MJCF through
 `physics.io.put_model`, which needs MuJoCo on the host: where MuJoCo is
-not installed it raises ImportError. -e loads a registered env's model
+not installed it raises an ImportError that names MuJoCo. -e loads a registered env's model
 file and needs no MuJoCo.
 
 Usage:

@@ -153,6 +153,19 @@ from myosuite_tpu_torch.utils import examine_sim, html, render_cams
 frame = Renderer(elbow, 16, 12).render(elbow.reset(
     torch.Generator().manual_seed(0), 2).data)
 assert frame.shape == (2, 12, 16, 3) and bool(frame.any())
+from myosuite_tpu_torch import mjcf
+from myosuite_tpu_torch.mjcf import builder, editor, export, hand, leg, sweep
+from myosuite_tpu_torch.mjcf import torso
+from myosuite_tpu_torch.utils import (dict_utils, paths_utils, prompt_utils,
+                                      tensor_utils, xml_utils)
+assert hand.build_hand().count("<muscle ") == 39
+assert export.SOURCES["myoleg.npz"]() == leg.build_leg()
+try:
+  myosuite_tpu_torch.make("MtxElbowPoseRandom-v0", device="cpu",
+                          overrides={"model_xml": builder.build_elbow()})
+  raise AssertionError("model_xml compiled without MuJoCo")
+except ImportError as e:
+  assert "MuJoCo" in str(e), e
 ik = inverse_kinematics.qpos_from_site_pose(
     elbow.model, elbow.reset(torch.Generator().manual_seed(0), 2).data, 0,
     torch.zeros(2, 3), max_steps=2)
@@ -175,8 +188,10 @@ def test_port_imports_no_jax_and_no_myosuite_tpu():
   restores the committed elbow policy, takes one SAC and one NPG step at a
   tiny config on the elbow, imports the mesh, robot, utils, logger,
   native, renderer and visual modules, draws the elbow, runs two IK
-  iterations, and loads no module of the JAX package, flax, optax, orbax,
-  gymnasium or h5py."""
+  iterations, imports the MJCF builders, the exporter, the sweep and the
+  host helpers, builds the hand's MJCF string, sees the model_xml route
+  raise the MuJoCo ImportError, and loads no module of the JAX package,
+  flax, optax, orbax, gymnasium or h5py."""
   proc = subprocess.run([sys.executable, "-c", _ISOLATION], cwd=_REPO,
                         capture_output=True, text=True, timeout=300)
   assert proc.returncode == 0, proc.stderr

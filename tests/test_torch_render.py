@@ -11,6 +11,7 @@ the same parameters, converted. Tolerances are stated in each test.
 
 import io
 import os
+import sys
 from contextlib import redirect_stdout
 
 import jax
@@ -290,10 +291,10 @@ def test_rgb_is_lambert_shading_of_geom_rgba(scene):
                          r.render(d, camera="boxcam", **kw)[env])
 
 
-def test_renderer_errors(scene):
+def test_renderer_errors(scene, monkeypatch):
   """An unknown camera raises KeyError naming the cameras; a model whose
   file lacks the render fields raises ValueError naming them;
-  PassiveViewer raises, naming the builder slice."""
+  PassiveViewer without a display raises RuntimeError naming DISPLAY."""
   m, d = scene
   with pytest.raises(KeyError, match="boxcam"):
     Renderer(m, 8, 8).render(d, camera="nope")
@@ -302,7 +303,9 @@ def test_renderer_errors(scene):
       if k not in ("geom_rgba", "cam_fovy")}, "cpu")
   with pytest.raises(ValueError, match="geom_rgba.*cam_fovy"):
     Renderer(bare)
-  with pytest.raises(NotImplementedError, match="builder slice"):
+  monkeypatch.delenv("DISPLAY", raising=False)
+  monkeypatch.setattr(sys, "platform", "linux")
+  with pytest.raises(RuntimeError, match="DISPLAY"):
     PassiveViewer(m)
 
 

@@ -507,10 +507,11 @@ def test_examine_env_success_rule_matches_jax(monkeypatch):
   assert got.tolist() == [True, False, True, False, True, True, False]
 
 
-def test_examine_env_cli_on_the_cpu(tmp_path):
+def test_examine_env_cli_on_the_cpu(tmp_path, monkeypatch):
   """examine_env --device cpu -n 4 --horizon 10 on the elbow: the summary
   line, and a trace of 4 episodes read back from its .mtp file;
-  --render onscreen raises (the viewer waits for the builder slice)."""
+  --render onscreen without a display says the viewer is unavailable and
+  runs headless on the device, as the JAX CLI does."""
   path = str(tmp_path / "episodes.mtp")
   out = io.StringIO()
   with redirect_stdout(out):
@@ -521,6 +522,12 @@ def test_examine_env_cli_on_the_cpu(tmp_path):
   back = trace.Trace.load(path)
   assert sorted(back.keys()) == [f"rollout{i}" for i in range(4)]
   assert back["rollout0"]["observations"].shape[1:] == (9,)
-  with pytest.raises(NotImplementedError, match="builder slice"):
-    examine_env.main(["-e", "MtxElbowPoseRandom-v0", "--render", "onscreen",
-                      "--device", "cpu"])
+  monkeypatch.delenv("DISPLAY", raising=False)
+  out = io.StringIO()
+  with redirect_stdout(out):
+    examine_env.main(["-e", "MtxElbowPoseRandom-v0", "-n", "2", "--horizon",
+                      "3", "--render", "onscreen", "--device", "cpu"])
+  lines = out.getvalue().splitlines()
+  assert lines[0].startswith("onscreen viewer unavailable (no DISPLAY")
+  assert lines[0].endswith("running headless")
+  assert lines[1].startswith("episodes: 2  success%: ")
