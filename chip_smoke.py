@@ -1,7 +1,7 @@
 """Smoke test of the PyTorch port on one CUDA card: python3 chip_smoke.py
 
-Builds the port's CUDA kernel from myosuite_tpu_torch/csrc, holds it against
-its plain PyTorch version on the card, drives the main path
+Builds the port's CUDA kernels from myosuite_tpu_torch/csrc, holds the warp
+kernel against its plain PyTorch version on the card, drives the main path
 (MtxHandReachRandom-v0, reset + 16 control steps at batch 4096) and checks
 that every substep's solve went through the kernel, prints the kernel's
 occupancy and its split by phase (from a second, clock-stamped build),
@@ -43,7 +43,7 @@ challenge golden replays and one timed PPO training step on
 MtxRunTrack-v0, whose policy commands nu - 2 actuators. Phase 12 drives
 the other trainers and the agents: SAC and NPG at their default configs
 on MtxHandReachRandom-v0 (SAC's collection epochs up to learning_starts,
-then 2 timed epochs with updates; NPG a warm-up and a timed iteration),
+then 2 timed epochs with updates; NPG one timed iteration),
 the five shipped pretrained policies restored from their .pt files in
 deterministic evals at batch 4096 against the JAX package's own eval
 (assets/pretrained_golden.npz), the closed-loop goldens of the elbow and
@@ -68,9 +68,18 @@ of every committed model file (its 64 joint samples as one batch through
 the port's kinematics, tendon and transmission on the card, held against
 the file's ranges; the two edited arm files by muscle name), the host
 path helpers on examine_env's device paths, and the builders and the
-model_xml route where MuJoCo cannot be imported. Prints one JSON line
-of
-kernel numbers (with a `shapes` list per env and (nv, nefc)) and, last,
+model_xml route where MuJoCo cannot be imported. Phase 16 drives the
+Newton solve's wide route (csrc/newton_solver_wide.cu, for nv > 40 or rows
+past the warp kernel's shared memory): the wide kernel bit-equal to its
+plain version on newton_kernel.WIDE_EDGE_CASES (nv 41-256, up to 1,200
+rows, in shared memory and in its device-memory workspace), the Relocate
+scene with two more loose spheres (nv 45, nefc 375) through
+make(..., overrides={"model_xml": ...}) at batch 4096 (10 wide launches
+and no warp launch per control step, the kernel at the scene's inputs
+with its bound, occupancy and phase split, the golden replay of
+assets/wide_golden.npz), and both kernels at Bimanual's inputs, bit-equal
+and timed in turns. Prints one JSON line of kernel numbers (with a
+`shapes` list per env and (nv, nefc)) and, last,
 {"ok": true, "device": {...}}. Exits non-zero, with no result line,
 when any phase fails or when there is no CUDA card.
 
@@ -230,11 +239,12 @@ class Stopwatch:
                                           key=lambda kv: -kv[1])))
 
 
-def phase_split(label, cycles, phases):
-  """Print mean clock cycles per env (one warp) of each phase."""
+def phase_split(label, cycles, phases, per="warp"):
+  """Print mean clock cycles per env (one warp, or one block of the wide
+  kernel) of each phase."""
   mean = cycles.double().mean(0)
   total = float(mean.sum())
-  print(f"  phase split, {label}: {total:.0f} cycles per warp")
+  print(f"  phase split, {label}: {total:.0f} cycles per {per}")
   for name, c in zip(phases, mean.tolist()):
     print(f"    {name:14s} {c:10.0f} cycles  {c / total:6.3f}")
 
@@ -357,10 +367,11 @@ def compare_parent(path, env, state, gen, args, kw, ours, few):
 
 
 def kernel_numbers(label, args, kw, plain_ms=None):
-  """The Newton kernel against its plain version on one set of solver
-  inputs (`compare` at TOL), its ms per launch, the plain version's ms (timed
-  here unless `plain_ms` gives it, as measured at the same shape) and the
-  bound from the cost model at the rows weighted at the solution."""
+  """The Newton kernel of the inputs' route against its plain version on
+  one set of solver inputs (`compare` at TOL), its ms per launch, the
+  plain version's ms (timed here unless `plain_ms` gives it, as measured
+  at the same shape) and the bound from the cost model at the rows
+  weighted at the solution."""
   from myosuite_tpu_torch.physics import newton_kernel as nk
   ours = nk.newton_solve(*args, **kw)
   ref = nk.newton_solve_reference(*args, **kw)
@@ -374,17 +385,26 @@ def kernel_numbers(label, args, kw, plain_ms=None):
                                    kw["ls_iterations"], n_weighted)
   nbytes = batch * nk.bytes_per_env(nv, nefc)
   t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
-  print(f"  newton_solver, {label}: {ms:.4f} ms per launch (plain version "
+  print(f"  newton_solver ({nk.route(nv, nefc)}), {label}: {ms:.4f} ms per "
+        f"launch (plain version "
         f"{plain_ms:.3f} ms); work {flops:.3e} FP32 ops ({n_weighted:.2f} "
         f"of {nefc} rows weighted at the solution), {nbytes:.3e} bytes; "
         f"bound {max(t_ops, t_bytes):.4f} ms by {t_ops:.4f} ms of operations "
         f"and {t_bytes:.4f} ms of bytes")
   sms = torch.cuda.get_device_properties(0).multi_processor_count
-  per_sm, epb = nk.occupancy(nv, nefc)
-  blocks = -(-batch // epb)
-  print(f"  occupancy: {per_sm} blocks of {epb} envs per SM "
-        f"({per_sm * epb} warps), {blocks} blocks on {sms} SMs = "
-        f"{blocks / (per_sm * sms):.3f} waves at batch {batch}")
+  if nk.route(nv, nefc) == "wide":
+    per_sm, in_smem = nk.wide_occupancy(nv, nefc)
+    epb = 1
+    print(f"  occupancy: {per_sm} blocks of one env (128 threads) per SM, "
+          f"the working set in {'shared' if in_smem else 'device'} memory; "
+          f"{batch} blocks on {sms} SMs = {batch / (per_sm * sms):.3f} "
+          f"waves")
+  else:
+    per_sm, epb = nk.occupancy(nv, nefc)
+    blocks = -(-batch // epb)
+    print(f"  occupancy: {per_sm} blocks of {epb} envs per SM "
+          f"({per_sm * epb} warps), {blocks} blocks on {sms} SMs = "
+          f"{blocks / (per_sm * sms):.3f} waves at batch {batch}")
   return dict(ours=ours, max_abs=max_abs, ms=ms, plain_ms=plain_ms,
               bound_ms=max(t_ops, t_bytes),
               bound_by="operations" if t_ops >= t_bytes else "bytes",
@@ -1391,7 +1411,7 @@ def challenge_phase(dev, build, phase_lib):
 
 
 SAC_EPOCHS = 2           # phase 12: timed SAC epochs past learning_starts
-NPG_ITERS = 1            # phase 12: timed NPG iterations after a warm-up
+NPG_ITERS = 1            # phase 12: NPG iterations, each timed
 EVAL_HORIZON = 100       # phase 12: control steps of each pretrained eval
 REFLEX_STEPS = 25        # phase 12: control steps of the reflex rollout
 KERNEL_AT_STEP = 50      # phase 12: the stand eval's step whose solve is
@@ -1473,9 +1493,11 @@ def sac_check(dev):
 
 
 def npg_check(dev):
-  """NPG at default_config() on the main path's env: a warm-up and
-  NPG_ITERS timed iterations, each 500 launches, split into rollout,
-  natural step and value fit; 0 < kl_after < 10 delta."""
+  """NPG at default_config() on the main path's env: NPG_ITERS timed
+  iterations, each 500 launches, split into rollout, natural step and
+  value fit; 0 < kl_after < 10 delta. The first needs no warm-up: on an
+  H100 it took as long as the second (18.87 and 18.79 s, PERF.md), the
+  rollout's host time dominating both."""
   import myosuite_tpu_torch
   from myosuite_tpu_torch.physics import newton_kernel as nk
   from myosuite_tpu_torch.train import npg as npg_mod
@@ -1488,7 +1510,7 @@ def npg_check(dev):
   for name in ("_rollout", "_natural_step", "_fit_value"):
     _timed_method(trainer, name, marks, torch.cuda.synchronize)
   out = []
-  for i in range(1 + NPG_ITERS):
+  for i in range(NPG_ITERS):
     marks.clear()
     nk.launches = 0
     torch.cuda.synchronize()
@@ -1502,7 +1524,7 @@ def npg_check(dev):
                value_fit_ms=marks["_fit_value"] * 1e3, wall_ms=wall * 1e3,
                env_steps_per_s=cfg.unroll_length * cfg.num_envs / wall,
                launches=nk.launches, **m)
-    print(f"  NPG iteration {i}{' (warm-up)' if i == 0 else ''}: rollout "
+    print(f"  NPG iteration {i}: rollout "
           f"{row['rollout_ms']:.1f} ms, natural step "
           f"{row['natural_step_ms']:.1f} ms, value fit "
           f"{row['value_fit_ms']:.1f} ms, {row['wall_ms']:.1f} ms in all = "
@@ -1517,8 +1539,7 @@ def npg_check(dev):
     if not 0 < m["kl_after"] < 10 * cfg.normalized_step_size:
       raise AssertionError(f"NPG kl_after {m['kl_after']} outside (0, "
                            f"{10 * cfg.normalized_step_size})")
-    if i:
-      out.append(row)
+    out.append(row)
   return out
 
 
@@ -2747,6 +2768,200 @@ def model_build_phase(dev, examine_trace):
   return swept
 
 
+WIDE_STEPS = 2           # phase 16: timed control steps of the scene
+WIDE_TURNS = ("warp", "wide", "wide", "warp")   # phase 16c's order
+# Phase 16's scene: the Relocate scene with two more loose spheres of the
+# object's kind, one on either side of it (nv 45, nefc 375). Its MJCF, with
+# the muscles' length ranges that MuJoCo sweeps, is stored in the golden
+# file; the card has no MuJoCo, so the model_xml route loads its compiled
+# copy (mjcf.export.write_compiled).
+CLUTTER = """
+    <body name="clutter_0" pos="-0.082 0.02 1.0">
+      <freejoint name="clutter_0_free"/>
+      <geom name="clutter_0_geom" type="sphere" size="0.04" mass="0.2"
+            contype="2" conaffinity="7"/>
+    </body>
+    <body name="clutter_1" pos="0.082 0.02 1.0">
+      <freejoint name="clutter_1_free"/>
+      <geom name="clutter_1_geom" type="sphere" size="0.04" mass="0.2"
+            contype="2" conaffinity="7"/>
+    </body>
+"""
+
+
+def wide_edge_check(dev):
+  """16(a): the wide kernel bit-equal to its plain version on every
+  WIDE_EDGE_CASES row, in shared memory and in the device-memory
+  workspace; the wrapper's layouts against the built libraries'."""
+  from myosuite_tpu_torch.physics import newton_kernel as nk
+  lib, wlib = nk._library(), nk._wide_library()
+  for seed, case in enumerate(nk.WIDE_EDGE_CASES):
+    nv, nefc, nfr, limits, batch, non_pd = case
+    if nk.route(nv, nefc) != "wide":
+      raise AssertionError(f"{case} does not take the wide route")
+    in_smem = wlib.newton_wide_workspace_floats(nv, nefc) == 0
+    if in_smem and wlib.newton_wide_smem_bytes(nv, nefc) != \
+        nk.wide_smem_bytes(nv, nefc):
+      raise AssertionError(f"{case}: the wide layout disagrees")
+    if in_smem != (nk.wide_smem_bytes(nv, nefc) <= nk._SMEM_LIMIT):
+      raise AssertionError(f"{case}: the wide branch disagrees")
+    args = [a.to(dev) for a in nk.random_batch(100 + seed, *case)]
+    kw = dict(n_friction=nfr, iterations=6, ls_iterations=6)
+    before = nk.launches_wide
+    ours = nk.newton_solve(*args, **kw)
+    if nk.launches_wide != before + 1:
+      raise AssertionError(f"{case}: the wide kernel did not launch")
+    err = compare(f"16a nv {nv} nefc {nefc} friction {nfr} limits {limits} "
+                  f"batch {batch}{' non-PD' if non_pd else ''} "
+                  f"({'shared' if in_smem else 'device'} memory)", ours,
+                  nk.newton_solve_wide_reference(*args, **kw), TOL)
+    if err != 0.0:
+      raise AssertionError(f"{case}: not bit-equal to the plain version")
+  for nv, nefc in ((23, 23), (33, 235), (38, 336), (40, 9)):
+    if lib.newton_solve_smem_per_env(nv, nefc) != nk.warp_smem_per_env(
+        nv, nefc):
+      raise AssertionError(f"warp_smem_per_env({nv}, {nefc}) disagrees")
+  print(f"  16a {len(nk.WIDE_EDGE_CASES)} wide cases bit-equal; route and "
+        f"layouts agree with the libraries")
+
+
+def wide_split(label, phase_lib, args, kw):
+  """The wide kernel's phase split at these inputs, from its phase-clock
+  build `phase_lib` (whatever the inputs' route)."""
+  from myosuite_tpu_torch.physics import newton_kernel as nk
+  cycles = torch.zeros(args[0].shape[0], len(nk.PHASES), dtype=torch.int64,
+                       device=args[0].device)
+  nk._launch_wide(phase_lib, args, cycles=cycles, **kw)
+  phase_split(label, cycles, nk.PHASES, per="block")
+
+
+def clutter_check(dev, phase_lib):
+  """16(b): the cluttered Relocate through make(..., model_xml) at batch
+  BATCH: reset, WIDE_STEPS timed control steps with the launch counts
+  (10 wide per control step, no warp launch), the profile, the wide kernel
+  against its plain version at the scene's own per-env inputs with its
+  numbers, and the golden replay."""
+  import myosuite_tpu_torch
+  from myosuite_tpu_torch.envs.challenge import state_from
+  from myosuite_tpu_torch.envs.registry import ASSETS
+  from myosuite_tpu_torch.physics import forward
+  from myosuite_tpu_torch.physics import newton_kernel as nk
+  with np.load(os.path.join(ASSETS, "wide_golden.npz")) as z:
+    golden = {k: z[k] for k in z.files}
+  xml = str(golden["scene_xml"])
+  if CLUTTER not in xml:
+    raise AssertionError("the golden's scene is not the cluttered one")
+  env = myosuite_tpu_torch.make("MtxRelocate-v0",
+                                overrides={"model_xml": xml})
+  m = env.model
+  nefc = m.plan["constraint"].nefc
+  gen = torch.Generator(dev).manual_seed(0)
+  t0 = time.perf_counter()
+  state = env.reset(gen, BATCH)
+  print(f"  16b cluttered Relocate (model_xml) reset at batch {BATCH} in "
+        f"{time.perf_counter() - t0:.2f} s; nv {m.nv}, nu {m.nu}, nefc "
+        f"{nefc}, contact slots {m.ncon_max}, route "
+        f"{nk.route(m.nv, nefc)}")
+  if (m.nv, nefc) != (45, 375) or nk.route(m.nv, nefc) != "wide":
+    raise AssertionError("the scene is not (45, 375) on the wide route")
+  _, state = control_steps(env, state, gen, 1)
+  nk.launches = nk.launches_wide = 0
+  step_ms, state = control_steps(env, state, gen, WIDE_STEPS)
+  launches, wide = nk.launches, nk.launches_wide
+  obs, d = state.obs["state"], state.data
+  finite = bool(torch.isfinite(obs).all() & torch.isfinite(state.reward)
+                .all())
+  print(f"  {WIDE_STEPS} control steps: {step_ms:.2f} ms per control step, "
+        f"{BATCH / step_ms * 1e3:.0f} env-steps/s; wide launches {wide} "
+        f"({wide / WIDE_STEPS:g} per control step), warp launches "
+        f"{launches}; obs and reward finite {finite}; mean ncon_active "
+        f"{float(d.ncon_active.float().mean()):.3f} of {m.ncon_max}")
+  if wide != WIDE_STEPS * env._n_substeps or launches != 0:
+    raise AssertionError(f"cluttered Relocate: {wide} wide and {launches} "
+                         f"warp launches, want "
+                         f"{WIDE_STEPS * env._n_substeps} and 0")
+  if not finite:
+    raise AssertionError("cluttered Relocate: non-finite obs or reward")
+  action = torch.rand(BATCH, env.action_size, generator=gen, device=dev)
+  busy, n_launch = step_profile(env, state, action, step_ms)
+  args, kw = forward.solve_inputs(env._model_for_step(state.info), d)
+  k = kernel_numbers(f"cluttered Relocate batch {BATCH}", args, kw)
+  wide_split(f"wide kernel, cluttered Relocate batch {BATCH}", phase_lib,
+             args, kw)
+  if k["max_abs"] != 0.0:
+    raise AssertionError(f"cluttered Relocate: the wide kernel is not "
+                         f"bit-equal to its plain version ({k['max_abs']})")
+  nb = golden["actions"].shape[1]
+  gstate = env.reset(torch.Generator(dev).manual_seed(0), nb)
+  at = lambda key: torch.from_numpy(golden[key]).to(dev)
+  info = {key[len("init_info_"):]: at(key) for key in golden
+          if key.startswith("init_info_")}
+  gstate = state_from(env, gstate, at("init_qpos"), at("init_qvel"), info)
+  check_golden("  16b golden", env, gstate, golden)
+  return dict(k, nv=m.nv, nefc=nefc, launches=wide, step_ms=step_ms,
+              busy_ms=busy, launches_per_substep=n_launch / env._n_substeps,
+              env="MtxRelocate-v0 + 2 loose spheres (model_xml)")
+
+
+def bimanual_record(dev, phase_lib):
+  """16(c), a record for the routing of Bimanual's (38, 336), which stays
+  on the warp kernel: both kernels at its inputs after a control step,
+  bit-equal to the plain version and to each other, timed in turns."""
+  import myosuite_tpu_torch
+  from myosuite_tpu_torch.physics import forward
+  from myosuite_tpu_torch.physics import newton_kernel as nk
+  env = myosuite_tpu_torch.make("MtxBimanual-v0")
+  gen = torch.Generator(dev).manual_seed(0)
+  state = env.reset(gen, BATCH)
+  _, state = control_steps(env, state, gen, 1)
+  args, kw = forward.solve_inputs(env._model_for_step(state.info),
+                                  state.data)
+  nv, nefc = args[1].shape[2], args[1].shape[1]
+  if nk.route(nv, nefc) != "warp":
+    raise AssertionError("Bimanual left the warp kernel")
+  wlib = nk._wide_library()
+  run = {"warp": lambda: nk.newton_solve(*args, **kw),
+         "wide": lambda: nk._launch_wide(wlib, args, **kw)}
+  ref = nk.newton_solve_reference(*args, **kw)
+  outs = {who: fn() for who, fn in run.items()}
+  err = compare(f"16c Bimanual ({nv}, {nefc}) batch {BATCH} wide",
+                outs["wide"], ref, TOL)
+  same = all(torch.equal(a, b) for a, b in zip(outs["wide"], outs["warp"]))
+  if err != 0.0 or not same:
+    raise AssertionError("16c: the wide kernel is not bit-equal to the plain "
+                         "version and the warp kernel at Bimanual's inputs")
+  ms = {"warp": [], "wide": []}
+  for who in WIDE_TURNS:
+    ms[who].append(cuda_ms(run[who], 20))
+  per_sm, _ = nk.wide_occupancy(nv, nefc)
+  wide_split(f"wide kernel, Bimanual batch {BATCH}", phase_lib, args, kw)
+  print(f"  16c Bimanual in turns ({', '.join(WIDE_TURNS)}): warp "
+        f"{ms['warp']} ms, wide {ms['wide']} ms per launch; the wide kernel "
+        f"bit-equal to the warp kernel {same}; wide occupancy {per_sm} "
+        f"blocks per SM")
+  return dict(nv=nv, nefc=nefc, ms=float(np.mean(ms["wide"])),
+              warp_ms=float(np.mean(ms["warp"])), max_abs_err=err,
+              env="MtxBimanual-v0 (record; routed to the warp kernel)")
+
+
+def wide_phase(dev, phase_lib):
+  """Phase 16: the wide route (nv > 40, or rows past the warp kernel's
+  shared memory): the edge cases, the cluttered Relocate as the main path
+  of the wide kernel, and the Bimanual record; `phase_lib` is the wide
+  kernel's phase-clock build. Raises on any failed check; returns the
+  numbers."""
+  watch = Stopwatch()
+  print("phase 16 wide route: csrc/newton_solver_wide.cu")
+  with watch.part("edge cases"):
+    wide_edge_check(dev)
+  with watch.part("cluttered Relocate"):
+    scene = clutter_check(dev, phase_lib)
+  with watch.part("Bimanual record"):
+    record = bimanual_record(dev, phase_lib)
+  watch.report("phase 16")
+  return dict(scene=scene, record=record)
+
+
 def main():
   parser = argparse.ArgumentParser()
   parser.add_argument("--parent", help="checkout whose Newton kernel to "
@@ -2774,16 +2989,22 @@ def main():
         f"matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}")
 
-  # 1. build: the main path's library and the phase-clock one, at once
+  # 1. build: each kernel's library and its phase-clock one, at once
   from concurrent.futures import ThreadPoolExecutor
-  with ThreadPoolExecutor(2) as pool:
+  clocks = ("NEWTON_PHASE_CLOCKS",)
+  with ThreadPoolExecutor(4) as pool:
     builds = [pool.submit(nk.build, True),
-              pool.submit(nk.build, True, ("NEWTON_PHASE_CLOCKS",))]
-    (path, seconds, log), (phase_path, phase_s, _) = [
-        b.result() for b in builds]
+              pool.submit(nk.build, True, clocks),
+              pool.submit(nk.build, True, (), nk.WIDE_SOURCE),
+              pool.submit(nk.build, True, clocks, nk.WIDE_SOURCE)]
+    ((path, seconds, log), (phase_path, phase_s, _),
+     (wide_path, wide_s, wide_log), (wide_phase_path, wide_phase_s, _)) = [
+         b.result() for b in builds]
   print(f"phase 1 build: {nk.SOURCE} -> {path} in {seconds:.1f} s; "
-        f"phase-clock build {phase_path} in {phase_s:.1f} s")
-  for line in log.splitlines():
+        f"phase-clock build {phase_path} in {phase_s:.1f} s; "
+        f"{nk.WIDE_SOURCE} -> {wide_path} in {wide_s:.1f} s, its "
+        f"phase-clock build {wide_phase_path} in {wide_phase_s:.1f} s")
+  for line in (log + wide_log).splitlines():
     if "Compiling" in line or "registers" in line or "spill" in line:
       print("  ptxas:", line.strip())
 
@@ -2919,11 +3140,16 @@ def main():
   model_build_phase(dev, tools["examine_env"]["trace"])
 
   mark(15)
+  # 16. the wide route
+  wide = wide_phase(dev, nk.load_wide(wide_phase_path))
+  scene, record = wide["scene"], wide["record"]
+
+  mark(16)
   print("phase ends (s since the start): " + ", ".join(
       f"{n} {t:.0f}" for n, t in ends))
   # the card again, on one of the last lines (the head of a long output
   # may be cut off where it is read)
-  print(f"phases 1-15 in {time.perf_counter() - t_start:.0f} s")
+  print(f"phases 1-16 in {time.perf_counter() - t_start:.0f} s")
   print(f"nvidia-smi: {smi}")
   print(json.dumps({"kernels": [{
       "name": "newton_solver", "route": "cuda",
@@ -2955,7 +3181,22 @@ def main():
               env="MtxLegStand-v0 under its trained policy",
               ms=stand["ms"], launches=stand["launches"],
               max_abs_err=stand["max_abs"], bound_ms=stand["bound_ms"],
-              plain_ms=stand["plain_ms"])]}]}))
+              plain_ms=stand["plain_ms"])]}, {
+      "name": "newton_solver_wide", "route": "cuda",
+      "source": "myosuite_tpu_torch/csrc/newton_solver_wide.cu",
+      "replaces": "myosuite_tpu/physics/pallas_solver.py:95",
+      "launches": scene["launches"],
+      "launches_per_control_step": scene["launches"] / WIDE_STEPS,
+      "max_abs_err": scene["max_abs"], "ms": scene["ms"],
+      "plain_ms": scene["plain_ms"], "bound_ms": scene["bound_ms"],
+      "bound_by": scene["bound_by"], "library_ms": None,
+      "blocks_per_sm": scene["blocks_per_sm"],
+      "shapes": [dict(nv=scene["nv"], nefc=scene["nefc"], env=scene["env"],
+                      ms=scene["ms"], launches=scene["launches"],
+                      max_abs_err=scene["max_abs"],
+                      bound_ms=scene["bound_ms"],
+                      plain_ms=scene["plain_ms"]),
+                 dict(record, launches=0)]}]}))
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

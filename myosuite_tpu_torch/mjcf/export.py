@@ -20,7 +20,9 @@ body ids, joint addresses, names, gait keyframes, reflex tables: what a
 JAX env looks up in its compiled model). `load_xml` serves
 `make(..., overrides={"model_xml": xml})`: it compiles a user's MJCF,
 keeps the committed file's task constants and derives the model entries
-from the user's model with the same code.
+from the user's model with the same code; where MuJoCo cannot be
+imported, it takes the compiled copy of that very MJCF that
+`write_compiled` keeps under assets/compiled/, if there is one.
 
 Compiling needs MuJoCo, imported inside the functions that compile; this
 module and every builder string import without it.
@@ -30,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 import os
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -487,14 +490,9 @@ def manip_model(obj: str, p: str = "cfg_manip_") -> Callable:
 
 
 def myodm_model(mj, fields) -> Entries:
-  """The scene's object site id and its (nv, nefc, ncon_max), after
-  checking that the Newton kernel takes its nv."""
-  from myosuite_tpu_torch.physics import newton_kernel
+  """The scene's object site id and its (nv, nefc, ncon_max)."""
   model = physics_io.model_from_numpy(fields, "cpu")
   nv, nefc = model.nv, model.plan["constraint"].nefc
-  if nv > newton_kernel.MAX_NV:
-    raise ValueError(f"nv {nv} > {newton_kernel.MAX_NV}: the Newton "
-                     "kernel cannot take this scene")
   return {"cfg_myodm_object_site": _i32(_id(mj, "SITE", "object_site")),
           "myodm_nv": _i32(nv), "myodm_nefc": _i32(nefc),
           "myodm_ncon_max": _i32(model.ncon_max)}
@@ -644,12 +642,43 @@ def write(name: str, assets: Optional[str] = None) -> str:
   return path
 
 
+def compiled_path(xml: str, name: str) -> str:
+  """Where `write_compiled` keeps the compiled copy of the MJCF `xml` in
+  place of the model file `name`: under assets/compiled/, named by the
+  SHA-256 of the two."""
+  key = hashlib.sha256(f"{name}\0{xml}".encode()).hexdigest()[:16]
+  return os.path.join(ASSETS, "compiled", f"{key}.npz")
+
+
+def write_compiled(xml: str, name: str) -> str:
+  """Compile the MJCF `xml` (needs MuJoCo) and write its fields and model
+  entries, as `load_xml` derives them in place of the model file `name`,
+  to `compiled_path(xml, name)`; returns that path. A machine without
+  MuJoCo (the card's) then runs the same `model_xml`."""
+  mj = physics_io.compile_mjcf(xml)
+  fields = physics_io.model_fields(mj)
+  path = compiled_path(xml, name)
+  os.makedirs(os.path.dirname(path), exist_ok=True)
+  physics_io.save_model(path, fields,
+                        **_entries(SPECS[name].model, mj, fields))
+  return path
+
+
 def load_xml(xml: str, name: str, device=None):
   """(Model, extra) of a user's MJCF `xml` in place of the committed model
-  file `name`: the model compiled on the host (needs MuJoCo), the file's
-  task constants, and the model entries derived from the user's model."""
-  mj = physics_io.compile_mjcf(xml)
+  file `name`: the model compiled on the host, the file's task constants,
+  and the model entries derived from the user's model. Where MuJoCo cannot
+  be imported, the compiled copy that `write_compiled` made of this very
+  MJCF, if there is one; else the ImportError naming MuJoCo."""
   _, extra = physics_io.load_model(os.path.join(ASSETS, name), "cpu")
+  try:
+    mj = physics_io.compile_mjcf(xml)
+  except ImportError:
+    path = compiled_path(xml, name)
+    if not os.path.exists(path):
+      raise
+    model, entries = physics_io.load_model(path, device)
+    return model, {**extra, **entries}
   extra.update(_entries(SPECS[name].model, mj, physics_io.model_fields(mj)))
   return physics_io.put_model(mj, device), extra
 

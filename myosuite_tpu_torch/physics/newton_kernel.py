@@ -1,25 +1,35 @@
-"""The fused Newton-solver kernel: its build, its wrapper, its plain version.
+"""The fused Newton-solver kernels: their build, their wrapper, their plain
+version.
 
-The CUDA kernel (`csrc/newton_solver.cu`) replaces the JAX package's Pallas
-TPU kernel `pallas_solver.py::_solver_kernel`: one launch per substep does
-the smooth solve, the whole Newton constraint solve and the
-implicit-damping Euler solve for every env. Its function is FP32
-arithmetic (25-32 flops per byte of device traffic at nv = nefc = 23,
-above the H100's ~20 flops per byte FP32 ridge); the kernel is held back
-by each warp's chain of dependent shuffles, square roots and divisions,
-which its design (a register tile over all 32 lanes for J^T W J and the
-Cholesky, only the rows of nonzero weight or force, the accepted point
-carried between iterations) keeps short; see the source.
+Two CUDA kernels replace the JAX package's Pallas TPU kernel
+`pallas_solver.py::_solver_kernel`; `route(nv, nefc)` picks one by shape.
+Each launch, once per substep, does the smooth solve, the whole Newton
+constraint solve and the implicit-damping Euler solve for every env.
 
-`newton_solve` dispatches on the device of its inputs: CUDA tensors go to
-the kernel (or raise), CPU tensors to `newton_solve_reference`, the plain
-PyTorch version, written step for step like the kernel, with the same
-clamped Cholesky (pivots clamped at 1e-12: a negative pivot gives a finite
-result, not NaN) and the same order of every sum. `launches` counts the
-kernel's launches.
+- "warp" (`csrc/newton_solver.cu`): one warp per env, for nv <= 40 where
+  one env's working set fits in shared memory. Its function is FP32
+  arithmetic (25-32 flops per byte of device traffic at nv = nefc = 23,
+  above the H100's ~20 flops per byte FP32 ridge); the kernel is held back
+  by each warp's chain of dependent shuffles, square roots and divisions,
+  which its design (a register tile over all 32 lanes for J^T W J and the
+  Cholesky, only the rows of nonzero weight or force, the accepted point
+  carried between iterations) keeps short; see the source.
+- "wide" (`csrc/newton_solver_wide.cu`): one block of 128 threads per env,
+  for every other shape: nv > 40, or rows past the warp kernel's shared
+  memory. Its working set lives in shared memory where it fits, else in a
+  per-env workspace in device memory, so it has no limit of its own.
 
-The kernel is compiled with `nvcc` into `_build/` at first use, keyed by a
-hash of its source and flags, and bound through ctypes.
+`newton_solve` dispatches on the route and on the device of its inputs:
+CUDA tensors go to the route's kernel (or raise), CPU tensors to its plain
+PyTorch version. Both kernels take every sum in the same order, so one
+plain version, `newton_solve_reference`, written step for step like them,
+serves both (`newton_solve_wide_reference` names it for the wide route):
+the same clamped Cholesky (pivots clamped at 1e-12: a negative pivot gives
+a finite result, not NaN) and the same order of every sum. `launches` and
+`launches_wide` count each kernel's launches.
+
+The kernels are compiled with `nvcc` into `_build/` at first use, keyed by
+a hash of their source and flags, and bound through ctypes.
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ _RIDGE = 1e-8
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "newton_solver.cu")
+WIDE_SOURCE = os.path.join(_PKG, "csrc", "newton_solver_wide.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 # -fmad=false: no multiply-add contraction, so the plain version (which
 # has none) rounds as the kernel does; see `newton_solve_reference`.
@@ -56,10 +67,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-# kernel launches since import (or since a caller reset it)
+# launches of the warp and of the wide kernel since import (or since a
+# caller reset them)
 launches = 0
+launches_wide = 0
 
 _lib = None
+_wide_lib = None
 
 
 def _nvcc() -> str:
@@ -73,24 +87,26 @@ def _nvcc() -> str:
   return path
 
 
-def build(force: bool = False, defines: Tuple[str, ...] = ()
-          ) -> Tuple[str, float, str]:
-  """Compile the kernel if needed; returns (library path, build seconds,
-  the compiler's output: ptxas register and shared-memory report).
-  `defines` are preprocessor macros, e.g. ("NEWTON_PHASE_CLOCKS",) for the
-  phase-clock build, which goes to a library of its own."""
-  with open(SOURCE, "rb") as f:
+def build(force: bool = False, defines: Tuple[str, ...] = (),
+          source: str = SOURCE) -> Tuple[str, float, str]:
+  """Compile a kernel's `source` (default the warp kernel) if needed;
+  returns (library path, build seconds, the compiler's output: ptxas
+  register and shared-memory report). `defines` are preprocessor macros,
+  e.g. ("NEWTON_PHASE_CLOCKS",) for the warp kernel's phase-clock build,
+  which goes to a library of its own."""
+  with open(source, "rb") as f:
     src = f.read()
   flags = NVCC_FLAGS + tuple("-D" + d for d in defines)
   key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
-  lib = os.path.join(BUILD_DIR, f"newton_solver_{key}.so")
+  stem = os.path.splitext(os.path.basename(source))[0]
+  lib = os.path.join(BUILD_DIR, f"{stem}_{key}.so")
   if os.path.exists(lib) and not force:
     return lib, 0.0, ""
   os.makedirs(BUILD_DIR, exist_ok=True)
   fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
   os.close(fd)
   t0 = time.perf_counter()
-  proc = subprocess.run([_nvcc(), *flags, "-o", tmp, SOURCE],
+  proc = subprocess.run([_nvcc(), *flags, "-o", tmp, source],
                         capture_output=True, text=True)
   seconds = time.perf_counter() - t0
   if proc.returncode != 0:
@@ -101,7 +117,8 @@ def build(force: bool = False, defines: Tuple[str, ...] = ()
 
 
 def load(path: str):
-  """The built library at `path`, its C interface declared for ctypes."""
+  """The built warp-kernel library at `path`, its C interface declared for
+  ctypes."""
   lib = ctypes.CDLL(path)
   ptr = ctypes.c_void_p
   i32 = ctypes.c_int
@@ -114,11 +131,66 @@ def load(path: str):
   return lib
 
 
+def load_wide(path: str):
+  """The built wide-kernel library at `path`, its C interface declared for
+  ctypes."""
+  lib = ctypes.CDLL(path)
+  ptr = ctypes.c_void_p
+  i32, i64 = ctypes.c_int, ctypes.c_long
+  lib.newton_wide_f32.argtypes = [ptr] * 16 + [i32] * 6 + [ptr]
+  lib.newton_wide_f32.restype = i32
+  for fn in (lib.newton_wide_workspace_floats, lib.newton_wide_smem_bytes):
+    fn.argtypes = [i32, i32]
+    fn.restype = i64
+  lib.newton_wide_occupancy.argtypes = [i32, i32]
+  lib.newton_wide_occupancy.restype = i32
+  return lib
+
+
 def _library():
   global _lib
   if _lib is None:
     _lib = load(build()[0])
   return _lib
+
+
+def _wide_library():
+  global _wide_lib
+  if _wide_lib is None:
+    _wide_lib = load_wide(build(source=WIDE_SOURCE)[0])
+  return _wide_lib
+
+
+def _tri(n: int) -> int:
+  return n * (n + 1) // 2
+
+
+def warp_smem_per_env(nv: int, nefc: int) -> int:
+  """Bytes of shared memory one env needs in the warp kernel: the C
+  library's `newton_solve_smem_per_env`, computed here so that `route`
+  needs no build (qM and J rows of stride 4 x odd, a staging row, the
+  factor and eight row vectors, rounded up to 4 floats)."""
+  ld = 4 * (((nv + 3) // 4) | 1)
+  n = (nv + nefc + 1) * ld + _tri(nv) + 8 * nefc
+  return 4 * ((n + 3) & ~3)
+
+
+def wide_smem_bytes(nv: int, nefc: int) -> int:
+  """Bytes of one env's working set in the wide kernel's shared memory (4
+  scalars, qM rows of odd stride, the triangle, 10 dof and 11 row vectors;
+  J is read from device memory): the C library's layout, computed here for
+  the tests. Where it passes a block's limit, the kernel works in a
+  device-memory workspace instead (`newton_wide_workspace_floats`)."""
+  return 4 * (4 + nv * (nv | 1) + _tri(nv) + 10 * nv + 11 * nefc)
+
+
+def route(nv: int, nefc: int) -> str:
+  """Which kernel solves a system of this shape: "warp" (newton_solver.cu)
+  where nv <= 40 and one env fits in its shared memory, "wide"
+  (newton_solver_wide.cu) for every other shape."""
+  if nv <= MAX_NV and warp_smem_per_env(nv, nefc) <= _SMEM_LIMIT:
+    return "warp"
+  return "wide"
 
 
 def flops_per_env(nv: int, nefc: int, iterations: int, ls_iterations: int,
@@ -215,6 +287,29 @@ EDGE_CASES = ((5, 9, 3, "some", 5, False), (5, 9, 3, "some", 37, False),
               (33, 235, 0, "some", 37, False),
               (38, 336, 0, "some", 37, False))
 
+# The wide route's edges, in the same form: past one warp's two dofs per
+# lane (nv 41, 45, 64, 96, 256), one row and the cluttered Relocate scene's
+# 375 at nv 45, 1,200 rows at nv 38 (past the warp kernel's shared
+# memory), friction rows, every limit row active or none, a mass matrix
+# with a negative pivot, batches that are not a multiple of anything; and
+# two where the wide kernel works in its device-memory workspace: nv 200
+# with friction rows and nv 256, where qM alone passes a block's shared
+# memory. Bimanual's (38, 336) takes the warp kernel; the wide kernel is
+# held there in chip_smoke.py phase 16c.
+WIDE_EDGE_CASES = ((41, 9, 0, "some", 37, False),
+                   (41, 70, 3, "some", 37, False),
+                   (45, 1, 0, "all", 37, False),
+                   (45, 375, 0, "some", 37, False),
+                   (45, 60, 3, "all", 37, False),
+                   (45, 40, 0, "none", 37, False),
+                   (45, 23, 0, "some", 37, True),
+                   (64, 90, 3, "some", 37, False),
+                   (96, 150, 0, "some", 5, False),
+                   (38, 1200, 0, "some", 5, False),
+                   (38, 1200, 3, "some", 5, True),
+                   (200, 100, 3, "some", 3, False),
+                   (256, 300, 0, "some", 3, False))
+
 
 def random_batch(seed: int, nv: int, nefc: int, n_friction: int,
                  limits: str, batch: int, non_pd: bool):
@@ -238,9 +333,8 @@ def _check(qM, J, aref, R, floss, active, warm, qfrc_smooth, damph):
   if qM.dim() != 3 or qM.shape[1] != qM.shape[2]:
     raise ValueError(f"qM must be (B, nv, nv), got {tuple(qM.shape)}")
   B, nv = qM.shape[0], qM.shape[1]
-  if nv > MAX_NV:
-    raise ValueError(f"the Newton kernel takes nv <= {MAX_NV} (two dofs "
-                     f"per warp lane); this system has nv = {nv}")
+  if J.dim() != 3:
+    raise ValueError(f"J must be (B, nefc, nv), got {tuple(J.shape)}")
   nefc = J.shape[1]
   want = {"J": (B, nefc, nv), "aref": (B, nefc), "R": (B, nefc),
           "floss": (B, nefc), "active": (B, nefc), "warm": (B, nv),
@@ -261,17 +355,24 @@ def newton_solve(qM, J, aref, R, floss, active, warm, qfrc_smooth, damph,
   Args lead with the env axis: qM (B,nv,nv), J (B,nefc,nv), aref, R,
   floss, active (B,nefc) (active as float 0/1), warm, qfrc_smooth, damph
   (B,nv). Rows [0, n_friction) are friction rows. Returns (qacc,
-  qfrc_constraint, efc_force, qacc_smooth, qacc_euler).
+  qfrc_constraint, efc_force, qacc_smooth, qacc_euler). CUDA tensors go
+  to the kernel of `route(nv, nefc)`, CPU tensors to its plain version.
   """
-  global launches
+  global launches, launches_wide
   args = (qM, J, aref, R, floss, active, warm, qfrc_smooth, damph)
   kw = dict(n_friction=n_friction, iterations=iterations,
             ls_iterations=ls_iterations)
-  _check(*args)
+  _, nv, nefc = _check(*args)
+  wide = route(nv, nefc) == "wide"
   if qM.device.type == "cpu":
-    return newton_solve_reference(*args, **kw)
-  outs = _launch(_library(), args, None, **kw)
-  launches += 1
+    return (newton_solve_wide_reference if wide
+            else newton_solve_reference)(*args, **kw)
+  if wide:
+    outs = _launch_wide(_wide_library(), args, **kw)
+    launches_wide += 1
+  else:
+    outs = _launch(_library(), args, None, **kw)
+    launches += 1
   return outs
 
 
@@ -283,11 +384,8 @@ def _envs_per_block(lib, nv: int, nefc: int) -> int:
   return min(ENVS_PER_BLOCK, _SMEM_LIMIT // smem)
 
 
-def _launch(lib, args, cycles, n_friction, iterations, ls_iterations):
-  """One launch of `lib`'s kernel on CUDA tensors; `cycles` is None or the
-  phase-clock buffer."""
-  qM, J, aref, warm = args[0], args[1], args[2], args[6]
-  B, nv, nefc = qM.shape[0], qM.shape[1], J.shape[1]
+def _check_device(args):
+  qM = args[0]
   if qM.device.type != "cuda":
     raise ValueError(f"no Newton solver for device {qM.device}")
   for a in args:
@@ -295,10 +393,23 @@ def _launch(lib, args, cycles, n_friction, iterations, ls_iterations):
         a.is_contiguous():
       raise ValueError("the Newton kernel takes contiguous float32 tensors "
                        f"on {qM.device}")
-  epb = _envs_per_block(lib, nv, nefc)
-  outs = (torch.empty_like(warm), torch.empty_like(warm),
+
+
+def _outputs(aref, warm):
+  """(qacc, qfrc, force, asmooth, qacc_euler), uninitialised."""
+  return (torch.empty_like(warm), torch.empty_like(warm),
           torch.empty_like(aref), torch.empty_like(warm),
           torch.empty_like(warm))
+
+
+def _launch(lib, args, cycles, n_friction, iterations, ls_iterations):
+  """One launch of `lib`'s kernel on CUDA tensors; `cycles` is None or the
+  phase-clock buffer."""
+  qM, J, aref, warm = args[0], args[1], args[2], args[6]
+  B, nv, nefc = qM.shape[0], qM.shape[1], J.shape[1]
+  _check_device(args)
+  epb = _envs_per_block(lib, nv, nefc)
+  outs = _outputs(aref, warm)
   qacc, qfrc, force, asmooth, qacc_euler = outs
   err = lib.newton_solve_f32(
       *[a.data_ptr() for a in args],
@@ -310,6 +421,41 @@ def _launch(lib, args, cycles, n_friction, iterations, ls_iterations):
   if err != 0:
     raise RuntimeError(f"newton_solve_f32 launch failed: CUDA error {err}")
   return outs
+
+
+def _launch_wide(lib, args, n_friction, iterations, ls_iterations,
+                 cycles=None):
+  """One launch of the wide kernel in `lib` on CUDA tensors, with the
+  per-env workspace in device memory where one env's working set does not
+  fit in shared memory; `cycles` is None or the phase-clock buffer."""
+  qM, J, aref, warm = args[0], args[1], args[2], args[6]
+  B, nv, nefc = qM.shape[0], qM.shape[1], J.shape[1]
+  _check_device(args)
+  ws_floats = lib.newton_wide_workspace_floats(nv, nefc)
+  work = (torch.empty(B * ws_floats, dtype=torch.float32, device=qM.device)
+          if ws_floats else None)
+  outs = _outputs(aref, warm)
+  err = lib.newton_wide_f32(
+      *[a.data_ptr() for a in args], *[o.data_ptr() for o in outs],
+      None if work is None else work.data_ptr(),
+      None if cycles is None else cycles.data_ptr(), B, nv, nefc,
+      int(n_friction), int(iterations), int(ls_iterations),
+      torch.cuda.current_stream(qM.device).cuda_stream)
+  if err != 0:
+    raise RuntimeError(f"newton_wide_f32 launch failed: CUDA error {err}")
+  return outs
+
+
+def wide_occupancy(nv: int, nefc: int, lib=None) -> Tuple[int, bool]:
+  """(blocks per SM, whether one env's working set is in shared memory) of
+  the wide kernel at these sizes, from
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor; a block is one env."""
+  lib = lib or _wide_library()
+  blocks = lib.newton_wide_occupancy(nv, nefc)
+  if blocks <= 0:
+    raise RuntimeError(f"newton_wide_occupancy failed: CUDA error "
+                       f"{-blocks}")
+  return blocks, lib.newton_wide_workspace_floats(nv, nefc) == 0
 
 
 def occupancy(nv: int, nefc: int, lib=None) -> Tuple[int, int]:
@@ -324,7 +470,8 @@ def occupancy(nv: int, nefc: int, lib=None) -> Tuple[int, int]:
   return blocks, epb
 
 
-# the phases of the NEWTON_PHASE_CLOCKS build, in the order of its clocks
+# the phases of the NEWTON_PHASE_CLOCKS builds, in the order of their
+# clocks
 PHASES = ("staging", "smooth solve", "warm start", "forces + grad",
           "Hessian", "Cholesky", "solve", "line search", "accept costs",
           "final forces", "Euler solve")
@@ -333,14 +480,22 @@ PHASES = ("staging", "smooth solve", "warm start", "forces + grad",
 def phase_cycles(*args, n_friction: int, iterations: int,
                  ls_iterations: int, lib=None) -> torch.Tensor:
   """Clock cycles per env and phase (B, len(PHASES)) of one launch of the
-  phase-clock build of the kernel (built on first use, never the library
-  `newton_solve` launches; not counted in `launches`)."""
-  _check(*args)
-  lib = lib or load(build(defines=("NEWTON_PHASE_CLOCKS",))[0])
+  phase-clock build of the inputs' route's kernel (`lib`, or built on
+  first use; never the library `newton_solve` launches, and not counted
+  in the launches). The warp kernel counts one warp's cycles, the wide
+  kernel its block's."""
+  _, nv, nefc = _check(*args)
+  kw = dict(n_friction=n_friction, iterations=iterations,
+            ls_iterations=ls_iterations)
   cycles = torch.zeros(args[0].shape[0], len(PHASES), dtype=torch.int64,
                        device=args[0].device)
-  _launch(lib, args, cycles, n_friction=n_friction, iterations=iterations,
-          ls_iterations=ls_iterations)
+  if route(nv, nefc) == "wide":
+    lib = lib or load_wide(build(defines=("NEWTON_PHASE_CLOCKS",),
+                                 source=WIDE_SOURCE)[0])
+    _launch_wide(lib, args, cycles=cycles, **kw)
+  else:
+    lib = lib or load(build(defines=("NEWTON_PHASE_CLOCKS",))[0])
+    _launch(lib, args, cycles, **kw)
   return cycles
 
 
@@ -384,10 +539,17 @@ def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
   return s
 
 
+def _live_rows(x: torch.Tensor):
+  """The rows e of x (B, nefc) that are nonzero in some env. A row whose
+  factor is 0 adds +-0 to a sum that starts at +0, which changes no bit, so
+  the kernels skip such rows and the sums here need not visit them."""
+  return torch.nonzero((x != 0).any(0)).flatten().tolist()
+
+
 def _mtv(A: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
   """A^T f, each column summed over rows in order (the kernel's `rows_t`)."""
   s = torch.zeros_like(A[..., 0, :])
-  for e in range(A.shape[-2]):
+  for e in _live_rows(f):
     s = s + A[..., e, :] * f[..., e:e + 1]
   return s
 
@@ -475,7 +637,7 @@ def newton_solve_reference(qM, J, aref, R, floss, active, warm, qfrc_smooth,
     force, w = forces(jar)
     grad = mda - _mtv(J, force)
     jwj = torch.zeros_like(qM)
-    for e in range(nefc):
+    for e in _live_rows(w):
       jwj = jwj + (J[:, e, :, None] * w[:, e, None, None]) * J[:, e, None, :]
     p = -_chol_solve(_chol_factor(jwj + qM + eye_ridge), grad)
 
@@ -501,3 +663,11 @@ def newton_solve_reference(qM, J, aref, R, floss, active, warm, qfrc_smooth,
   mh = qM + torch.diag_embed(damph)
   qacc_euler = _chol_solve(_chol_factor(mh), qfrc_smooth + qfrc)
   return a, qfrc, force, a_smooth, qacc_euler
+
+
+# The wide kernel's plain version. The wide kernel takes every sum in the
+# warp kernel's order (dot products over k ascending, J^T W J and J^T f over
+# rows ascending, the Cholesky's subtractions over k ascending, whole-vector
+# sums in warp 0's lane order and butterfly), so one plain version is both
+# kernels', and the two kernels agree bit for bit at a shape both take.
+newton_solve_wide_reference = newton_solve_reference

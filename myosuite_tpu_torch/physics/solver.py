@@ -8,8 +8,12 @@ host control flow.
 
 `solve` always takes the fused path: the Newton kernel (newton_kernel.py)
 also returns qacc_smooth and the implicit-damping Euler acceleration, so the
-step never factors qM elsewhere. `newton_torch` is the batched counterpart
-of the JAX package's `newton_xla`, with `linalg`'s NaN-on-non-PD Cholesky.
+step never factors qM elsewhere. `newton_kernel.route` picks the kernel by
+(nv, nefc): the warp kernel (one warp per env) for nv <= 40 where an env
+fits in its shared memory, the wide kernel (one block per env) for every
+other shape, so every system the JAX package steps is solved.
+`newton_torch` is the batched counterpart of the JAX package's
+`newton_xla`, with `linalg`'s NaN-on-non-PD Cholesky.
 """
 
 from __future__ import annotations
@@ -109,9 +113,10 @@ def newton_inputs(m: Model, d: Data, efc: Efc):
 def solve(m: Model, d: Data, efc: Efc):
   """Returns (qacc, qfrc_constraint, efc_force, qacc_smooth, qacc_euler).
 
-  CUDA tensors go through the Newton kernel, CPU tensors through its plain
-  version. A model with no constraint rows needs no Newton solve: its two
-  Cholesky solves run here in plain PyTorch.
+  CUDA tensors go through the Newton kernel of `newton_kernel.route`
+  ("warp" or "wide"), CPU tensors through its plain version. A model
+  with no constraint rows needs no Newton solve: its two Cholesky solves
+  run here in plain PyTorch.
   """
   if efc.J.shape[1] == 0:
     damph = (m.opt.timestep * m.dof_damping).expand(d.batch, -1)

@@ -38,6 +38,12 @@ from tests.torch_common import EXPORTS, assert_close
 
 ATOL = 1e-5
 HAND = "MtxHandReachRandom-v0"
+# The JAX registry's ids as the package defines them, taken when the test
+# modules are collected: a test of the JAX package
+# (tests/test_new_components.py::test_register_env_variant) registers a
+# variant into it for good, and may run before test_registry_matches_jax
+# in the same process.
+JAX_IDS = frozenset(jax_registry.registered_envs())
 # the new models' ids, by the model file that holds each
 NEW_IDS = {"torso": "MtxTorsoPoseRandom-v0",
            "armreach": "MtxArmReachRandom-v0",
@@ -538,7 +544,7 @@ def test_registry_matches_jax():
           | {f"Mtx{tag}{b[3:]}" for b in bases for tag in ("Fati", "Sarc")})
   assert ours == want and len(ours) == 308 and len(dm) == 190
   assert _port_ids() <= ours
-  theirs = set(jax_registry.registered_envs())
+  theirs = set(JAX_IDS)
   assert ours == theirs and len(theirs) == 308
   assert {n for n in theirs if jax_registry.suite_of(n) == "myochal"} == \
       chal

@@ -1,4 +1,4 @@
-"""The CUDA Newton kernel against its plain PyTorch version, on the card.
+"""The CUDA Newton kernels against their plain PyTorch version, on the card.
 
 Imports neither JAX nor MuJoCo, so it runs where only PyTorch is installed:
 
@@ -91,20 +91,75 @@ def test_kernel_matches_plain_edge_cases(cuda, case):
 
 @pytest.mark.cuda
 def test_kernel_takes_nv_up_to_40(cuda):
-  """nv 40 goes to the kernel (one launch); nv 41 raises, launching
-  nothing and never reaching the plain version."""
+  """nv 40 goes to the warp kernel (one launch); nv 41 to the wide kernel
+  (one wide launch, none of the warp kernel), bit-equal to its plain
+  version."""
   args = [a.to(cuda) for a in newton_kernel.random_batch(0, 40, 9, 0, "some",
                                                           3, False)]
-  before = newton_kernel.launches
+  before = newton_kernel.launches, newton_kernel.launches_wide
   out = newton_kernel.newton_solve(*args, n_friction=0, **KW)
   torch.cuda.synchronize()
-  assert newton_kernel.launches == before + 1
+  assert (newton_kernel.launches, newton_kernel.launches_wide) == (
+      before[0] + 1, before[1])
   assert all(bool(torch.isfinite(o).all()) for o in out)
   big = [a.to(cuda) for a in newton_kernel.random_batch(0, 41, 9, 0, "some",
                                                          3, False)]
-  with pytest.raises(ValueError, match="nv <= 40"):
-    newton_kernel.newton_solve(*big, n_friction=0, **KW)
-  assert newton_kernel.launches == before + 1
+  out = newton_kernel.newton_solve(*big, n_friction=0, **KW)
+  torch.cuda.synchronize()
+  assert (newton_kernel.launches, newton_kernel.launches_wide) == (
+      before[0] + 1, before[1] + 1)
+  ref = newton_kernel.newton_solve_wide_reference(*big, n_friction=0, **KW)
+  for o, r, name in zip(out, ref, NAMES):
+    assert torch.equal(o, r), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", newton_kernel.WIDE_EDGE_CASES,
+                         ids=lambda c: "nv{}-nefc{}-fr{}-{}-b{}{}".format(
+                             *c[:5], "-nonpd" if c[5] else ""))
+def test_wide_kernel_bit_equal_edge_cases(cuda, case):
+  """The wide kernel on its EDGE_CASES rows (nv 41-256, one row to 1,200,
+  friction rows, all or no limit rows active, a negative pivot; in shared
+  memory and in the device-memory workspace): every output equal to its
+  plain version's, and one wide launch."""
+  nv, nefc, nfr = case[:3]
+  args = [a.to(cuda) for a in newton_kernel.random_batch(
+      100 + newton_kernel.WIDE_EDGE_CASES.index(case), *case)]
+  before = newton_kernel.launches_wide
+  out = newton_kernel.newton_solve(*args, n_friction=nfr, **KW)
+  torch.cuda.synchronize()
+  assert newton_kernel.launches_wide == before + 1
+  ref = newton_kernel.newton_solve_wide_reference(*args, n_friction=nfr,
+                                                  **KW)
+  for o, r, name in zip(out, ref, NAMES):
+    assert torch.isfinite(o).all(), name
+    assert torch.equal(o, r), (name, float((o - r).abs().max()))
+  lib = newton_kernel._wide_library()
+  in_smem = lib.newton_wide_workspace_floats(nv, nefc) == 0
+  assert in_smem == (newton_kernel.wide_smem_bytes(nv, nefc)
+                     <= newton_kernel._SMEM_LIMIT)
+  if in_smem:
+    assert lib.newton_wide_smem_bytes(nv, nefc) == \
+        newton_kernel.wide_smem_bytes(nv, nefc)
+
+
+@pytest.mark.cuda
+def test_wide_kernel_equals_warp_kernel_where_both_take(cuda):
+  """At Bimanual's (38, 336), which routes to the warp kernel, the wide
+  kernel called directly gives the warp kernel's outputs bit for bit; the
+  route's shared-memory rule is the warp library's."""
+  args = [a.to(cuda) for a in newton_kernel.random_batch(7, 38, 336, 0,
+                                                          "some", 64, False)]
+  assert newton_kernel.route(38, 336) == "warp"
+  warp = newton_kernel.newton_solve(*args, n_friction=0, **KW)
+  wide = newton_kernel._launch_wide(newton_kernel._wide_library(), args,
+                                    n_friction=0, **KW)
+  for a, b, name in zip(warp, wide, NAMES):
+    assert torch.equal(a, b), name
+  lib = newton_kernel._library()
+  for nv, nefc in ((23, 23), (33, 235), (38, 336), (40, 9), (38, 1068)):
+    assert lib.newton_solve_smem_per_env(nv, nefc) == \
+        newton_kernel.warp_smem_per_env(nv, nefc)
 
 
 @pytest.mark.cuda

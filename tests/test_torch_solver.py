@@ -169,11 +169,26 @@ def test_newton_solve_dispatch_and_limits():
   for o, r in zip(out, ref):
     assert torch.equal(o, r)
   assert newton_kernel.launches == before   # the CPU path launches nothing
-  big = [torch.zeros(1, 41, 41), torch.zeros(1, 2, 41)] + [
-      torch.zeros(1, 2)] * 4 + [torch.zeros(1, 41)] * 3
-  with pytest.raises(ValueError, match="nv <= 40"):
-    newton_kernel.newton_solve(*big, n_friction=0, iterations=1,
-                               ls_iterations=1)
+  # nv 41 takes the wide route: on the CPU its plain version, no launch
+  wide = newton_kernel.random_batch(0, 41, 9, 0, "some", 3, False)
+  before = (newton_kernel.launches, newton_kernel.launches_wide)
+  out = newton_kernel.newton_solve(*wide, n_friction=0, iterations=6,
+                                   ls_iterations=6)
+  ref = newton_kernel.newton_solve_wide_reference(
+      *wide, n_friction=0, iterations=6, ls_iterations=6)
+  for o, r in zip(out, ref):
+    assert torch.equal(o, r)
+  assert all(bool(torch.isfinite(o).all()) for o in out)
+  assert (newton_kernel.launches, newton_kernel.launches_wide) == before
+  # malformed inputs still raise
+  for i, bad in ((0, torch.zeros(3, 41, 40)), (1, torch.zeros(3, 9, 40)),
+                 (2, torch.zeros(3, 8)), (6, torch.zeros(3, 40)),
+                 (1, torch.zeros(3, 9))):
+    args = list(wide)
+    args[i] = bad
+    with pytest.raises(ValueError, match="must be"):
+      newton_kernel.newton_solve(*args, n_friction=0, iterations=1,
+                                 ls_iterations=1)
 
 
 def test_reference_matches_xla_past_32_dofs():
@@ -236,9 +251,16 @@ def test_reference_edge_rows_solve_their_systems(case):
   solving their systems (checked in float64), qfrc = J^T force, friction
   forces within +-floss, limit and contact forces pushing only, and only
   on active rows."""
-  nv, nefc, n_fr, _, _, non_pd = case
   seed = newton_kernel.EDGE_CASES.index(case)
-  args = newton_kernel.random_batch(seed, *case)
+  check_solves_its_systems(case, newton_kernel.random_batch(seed, *case))
+
+
+def check_solves_its_systems(case, args):
+  """The plain version on one EDGE_CASES-style row's systems `args`:
+  finite outputs, a_smooth and qacc_euler solving their systems (checked
+  in float64), qfrc = J^T force, friction forces within +-floss, limit and
+  contact forces pushing only, and only on active rows."""
+  nv, nefc, n_fr, _, _, non_pd = case
   out = newton_kernel.newton_solve_reference(
       *args, n_friction=n_fr, iterations=6, ls_iterations=6)
   for o, name in zip(out, NAMES):
