@@ -72,13 +72,17 @@ model_xml route where MuJoCo cannot be imported. Phase 16 drives the
 Newton solve's wide route (csrc/newton_solver_wide.cu, for nv > 40 or rows
 past the warp kernel's shared memory): the wide kernel bit-equal to its
 plain version on newton_kernel.WIDE_EDGE_CASES (nv 41-256, up to 1,200
-rows, in shared memory and in its device-memory workspace), the Relocate
-scene with two more loose spheres (nv 45, nefc 375) through
-make(..., overrides={"model_xml": ...}) at batch 4096 (10 wide launches
-and no warp launch per control step, the kernel at the scene's inputs
-with its bound, occupancy and phase split, the golden replay of
-assets/wide_golden.npz), and both kernels at Bimanual's inputs, bit-equal
-and timed in turns. Prints one JSON line of kernel numbers (with a
+rows, in shared memory and in its device-memory workspace) and, called
+directly, on WIDE_FINISH_CASES (nv 17, 18 and 19, around its factor's
+warp finish), the Relocate scene with two more loose spheres (nv 45, nefc 375)
+through make(..., overrides={"model_xml": ...}) at batch 4096 (10 wide
+launches and no warp launch per control step, the kernel at the scene's
+inputs with its bound, phase split, blocks per SM, the resource that
+limits them, its waves and the shared-memory carveout its launch sets,
+read back, and timed in turns against the largest split and the
+CUDA runtime's default; the golden replay of assets/wide_golden.npz),
+and both kernels at Bimanual's and Relocate's inputs, bit-equal and timed
+in turns. Prints one JSON line of kernel numbers (with a
 `shapes` list per env and (nv, nefc)) and, last,
 {"ok": true, "device": {...}}. Exits non-zero, with no result line,
 when any phase fails or when there is no CUDA card.
@@ -90,7 +94,9 @@ the same C interface) against this one in turns (DIR, this, this, DIR):
 per launch, and per control step of the main path with DIR's kernel
 swapped in, and prints DIR's phase split; phase 14 then also times DIR's
 bare hand control step, and counts its launches per substep, against
-this checkout's in turns, each in a process of its own.
+this checkout's in turns, each in a process of its own; phase 16 builds
+DIR's wide kernel and times it against this one in turns at the cluttered
+Relocate's and Bimanual's inputs, which must be bit-equal.
 """
 
 import argparse
@@ -101,6 +107,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -2792,7 +2799,8 @@ CLUTTER = """
 def wide_edge_check(dev):
   """16(a): the wide kernel bit-equal to its plain version on every
   WIDE_EDGE_CASES row, in shared memory and in the device-memory
-  workspace; the wrapper's layouts against the built libraries'."""
+  workspace, and on WIDE_FINISH_CASES; the warp kernel's layout, which
+  `route` computes without a build, against its library's."""
   from myosuite_tpu_torch.physics import newton_kernel as nk
   lib, wlib = nk._library(), nk._wide_library()
   for seed, case in enumerate(nk.WIDE_EDGE_CASES):
@@ -2800,11 +2808,6 @@ def wide_edge_check(dev):
     if nk.route(nv, nefc) != "wide":
       raise AssertionError(f"{case} does not take the wide route")
     in_smem = wlib.newton_wide_workspace_floats(nv, nefc) == 0
-    if in_smem and wlib.newton_wide_smem_bytes(nv, nefc) != \
-        nk.wide_smem_bytes(nv, nefc):
-      raise AssertionError(f"{case}: the wide layout disagrees")
-    if in_smem != (nk.wide_smem_bytes(nv, nefc) <= nk._SMEM_LIMIT):
-      raise AssertionError(f"{case}: the wide branch disagrees")
     args = [a.to(dev) for a in nk.random_batch(100 + seed, *case)]
     kw = dict(n_friction=nfr, iterations=6, ls_iterations=6)
     before = nk.launches_wide
@@ -2817,12 +2820,25 @@ def wide_edge_check(dev):
                   nk.newton_solve_wide_reference(*args, **kw), TOL)
     if err != 0.0:
       raise AssertionError(f"{case}: not bit-equal to the plain version")
+  for seed, case in enumerate(nk.WIDE_FINISH_CASES):
+    # around the factor's warp finish; these shapes take the warp route,
+    # so the wide kernel is called directly (not a launch of the main path)
+    nv, nefc, nfr, limits, batch, _ = case
+    args = [a.to(dev) for a in nk.random_batch(200 + seed, *case)]
+    kw = dict(n_friction=nfr, iterations=6, ls_iterations=6)
+    err = compare(f"16a nv {nv} nefc {nefc} friction {nfr} limits {limits} "
+                  f"batch {batch} (the wide kernel called directly)",
+                  nk._launch_wide(wlib, args, **kw),
+                  nk.newton_solve_wide_reference(*args, **kw), TOL)
+    if err != 0.0:
+      raise AssertionError(f"{case}: not bit-equal to the plain version")
   for nv, nefc in ((23, 23), (33, 235), (38, 336), (40, 9)):
     if lib.newton_solve_smem_per_env(nv, nefc) != nk.warp_smem_per_env(
         nv, nefc):
       raise AssertionError(f"warp_smem_per_env({nv}, {nefc}) disagrees")
-  print(f"  16a {len(nk.WIDE_EDGE_CASES)} wide cases bit-equal; route and "
-        f"layouts agree with the libraries")
+  print(f"  16a {len(nk.WIDE_EDGE_CASES)} wide cases and "
+        f"{len(nk.WIDE_FINISH_CASES)} around the warp finish bit-equal; "
+        f"route and the warp layout agree with the library")
 
 
 def wide_split(label, phase_lib, args, kw):
@@ -2835,12 +2851,14 @@ def wide_split(label, phase_lib, args, kw):
   phase_split(label, cycles, nk.PHASES, per="block")
 
 
-def clutter_check(dev, phase_lib):
+def clutter_check(dev, phase_lib, split_libs):
   """16(b): the cluttered Relocate through make(..., model_xml) at batch
   BATCH: reset, WIDE_STEPS timed control steps with the launch counts
   (10 wide per control step, no warp launch), the profile, the wide kernel
   against its plain version at the scene's own per-env inputs with its
-  numbers, and the golden replay."""
+  numbers, its phase split beside its blocks per SM, the resource that
+  limits them and its waves, its carveout in turns against `split_libs`'
+  (carveout_turns), and the golden replay."""
   import myosuite_tpu_torch
   from myosuite_tpu_torch.envs.challenge import state_from
   from myosuite_tpu_torch.envs.registry import ASSETS
@@ -2888,6 +2906,8 @@ def clutter_check(dev, phase_lib):
   k = kernel_numbers(f"cluttered Relocate batch {BATCH}", args, kw)
   wide_split(f"wide kernel, cluttered Relocate batch {BATCH}", phase_lib,
              args, kw)
+  _, bound, waves, config = wide_occupancy_line("cluttered Relocate", m.nv,
+                                                nefc)
   if k["max_abs"] != 0.0:
     raise AssertionError(f"cluttered Relocate: the wide kernel is not "
                          f"bit-equal to its plain version ({k['max_abs']})")
@@ -2898,19 +2918,83 @@ def clutter_check(dev, phase_lib):
           if key.startswith("init_info_")}
   gstate = state_from(env, gstate, at("init_qpos"), at("init_qvel"), info)
   check_golden("  16b golden", env, gstate, golden)
+  turns = carveout_turns("cluttered Relocate", split_libs, args, kw)
   return dict(k, nv=m.nv, nefc=nefc, launches=wide, step_ms=step_ms,
               busy_ms=busy, launches_per_substep=n_launch / env._n_substeps,
+              limited_by=bound, waves=waves,
+              carveout=dict(config, ms_in_turns=turns), args=args, kw=kw,
               env="MtxRelocate-v0 + 2 loose spheres (model_xml)")
 
 
-def bimanual_record(dev, phase_lib):
-  """16(c), a record for the routing of Bimanual's (38, 336), which stays
-  on the warp kernel: both kernels at its inputs after a control step,
-  bit-equal to the plain version and to each other, timed in turns."""
+def wide_occupancy_line(label, nv, nefc, batch=BATCH):
+  """Print the wide kernel's blocks per SM at these sizes (the occupancy
+  API, with the attributes a launch sets), the resource that limits them
+  (shared memory where they are as many as it alone allows at the largest
+  split, else registers: 128 threads a block leave room for 16) and the
+  waves of `batch` envs, beside what the launch is set up with, read back
+  from the runtime (nk.wide_config); returns (blocks per SM, the limiting
+  resource, waves, the config)."""
+  from myosuite_tpu_torch.physics import newton_kernel as nk
+  per_sm, in_smem = nk.wide_occupancy(nv, nefc)
+  config = nk.wide_config(nv, nefc)
+  sms = torch.cuda.get_device_properties(0).multi_processor_count
+  bound = ("shared memory" if per_sm == config["smem_blocks_largest"]
+           else "registers")
+  waves = batch / (per_sm * sms)
+  smem = nk._wide_library().newton_wide_smem_bytes(nv, nefc)
+  print(f"  occupancy, {label}: {per_sm} blocks (envs) per SM, limited by "
+        f"{bound} (shared memory alone allows "
+        f"{config['smem_blocks_largest']} at the largest split; "
+        f"{config['registers']} registers and {config['local_bytes']} "
+        f"bytes of local memory a thread, {smem} bytes of shared memory an "
+        f"env, the working set in {'shared' if in_smem else 'device'} "
+        f"memory); carveout read back {config['carveout_pct']}% = the "
+        f"{config['split_kb']} KB shared-memory split "
+        f"({256 - config['split_kb']} KB of L1; shared memory alone allows "
+        f"{config['smem_blocks']} there); {batch} envs on {sms} SMs = "
+        f"{waves:.3f} waves ({-(-batch // (per_sm * sms))} rounded up)")
+  return per_sm, bound, waves, config
+
+
+def carveout_turns(label, split_libs, args, kw):
+  """The wide kernel at these inputs with the carveout its launch sets
+  ("set") against builds that ask for another (`split_libs`: "largest",
+  the 228 KB split; "default", no preference), each's carveout read back
+  and its blocks per SM, bit-equal, timed in turns (set, others, others
+  reversed, set); returns {name: [ms, ms]}."""
+  from myosuite_tpu_torch.physics import newton_kernel as nk
+  nv, nefc = args[1].shape[2], args[1].shape[1]
+  libs = dict(set=nk._wide_library(), **split_libs)
+  base = nk._launch_wide(libs["set"], args, **kw)
+  for name, lib in libs.items():
+    config = nk.wide_config(nv, nefc, lib)
+    same = all(torch.equal(a, b)
+               for a, b in zip(nk._launch_wide(lib, args, **kw), base))
+    print(f"  16b carveout {name}: read back {config['carveout_pct']}% "
+          f"(split {config['split_kb']} KB; -1: the runtime's default), "
+          f"{nk.wide_occupancy(nv, nefc, lib)[0]} blocks per SM, bit-equal "
+          f"{same}")
+    if not same:
+      raise AssertionError(f"16b: the {name} carveout build differs")
+  order = ["set", *split_libs, *reversed(split_libs), "set"]
+  ms = {name: [] for name in libs}
+  for name in order:
+    ms[name].append(cuda_ms(lambda: nk._launch_wide(libs[name], args, **kw),
+                            20))
+  print(f"  16b {label} by carveout in turns ({', '.join(order)}): "
+        + "; ".join(f"{name} {v} ms" for name, v in ms.items()))
+  return ms
+
+
+def warp_route_record(dev, phase_lib, name):
+  """16(c), a record for the routing of an env that stays on the warp
+  kernel (Bimanual's (38, 336), Relocate's (33, 235)): both kernels at its
+  inputs after a control step, bit-equal to the plain version and to each
+  other, timed in turns."""
   import myosuite_tpu_torch
   from myosuite_tpu_torch.physics import forward
   from myosuite_tpu_torch.physics import newton_kernel as nk
-  env = myosuite_tpu_torch.make("MtxBimanual-v0")
+  env = myosuite_tpu_torch.make(name)
   gen = torch.Generator(dev).manual_seed(0)
   state = env.reset(gen, BATCH)
   _, state = control_steps(env, state, gen, 1)
@@ -2918,54 +3002,105 @@ def bimanual_record(dev, phase_lib):
                                   state.data)
   nv, nefc = args[1].shape[2], args[1].shape[1]
   if nk.route(nv, nefc) != "warp":
-    raise AssertionError("Bimanual left the warp kernel")
+    raise AssertionError(f"{name} left the warp kernel")
   wlib = nk._wide_library()
   run = {"warp": lambda: nk.newton_solve(*args, **kw),
          "wide": lambda: nk._launch_wide(wlib, args, **kw)}
   ref = nk.newton_solve_reference(*args, **kw)
   outs = {who: fn() for who, fn in run.items()}
-  err = compare(f"16c Bimanual ({nv}, {nefc}) batch {BATCH} wide",
+  err = compare(f"16c {name} ({nv}, {nefc}) batch {BATCH} wide",
                 outs["wide"], ref, TOL)
   same = all(torch.equal(a, b) for a, b in zip(outs["wide"], outs["warp"]))
   if err != 0.0 or not same:
-    raise AssertionError("16c: the wide kernel is not bit-equal to the plain "
-                         "version and the warp kernel at Bimanual's inputs")
+    raise AssertionError(f"16c: the wide kernel is not bit-equal to the "
+                         f"plain version and the warp kernel at {name}'s "
+                         f"inputs")
   ms = {"warp": [], "wide": []}
   for who in WIDE_TURNS:
     ms[who].append(cuda_ms(run[who], 20))
-  per_sm, _ = nk.wide_occupancy(nv, nefc)
-  wide_split(f"wide kernel, Bimanual batch {BATCH}", phase_lib, args, kw)
-  print(f"  16c Bimanual in turns ({', '.join(WIDE_TURNS)}): warp "
+  wide_split(f"wide kernel, {name} batch {BATCH}", phase_lib, args, kw)
+  per_sm, bound, waves, _ = wide_occupancy_line(name, nv, nefc)
+  print(f"  16c {name} in turns ({', '.join(WIDE_TURNS)}): warp "
         f"{ms['warp']} ms, wide {ms['wide']} ms per launch; the wide kernel "
-        f"bit-equal to the warp kernel {same}; wide occupancy {per_sm} "
-        f"blocks per SM")
+        f"bit-equal to the warp kernel {same}")
   return dict(nv=nv, nefc=nefc, ms=float(np.mean(ms["wide"])),
               warp_ms=float(np.mean(ms["warp"])), max_abs_err=err,
-              env="MtxBimanual-v0 (record; routed to the warp kernel)")
+              blocks_per_sm=per_sm, waves=waves, args=args, kw=kw,
+              env=f"{name} (record; routed to the warp kernel)")
 
 
-def wide_phase(dev, phase_lib):
+def compare_parent_wide(path, shapes):
+  """--parent: the wide kernel of the checkout at `path` against this one
+  at each (label, args, kw) of `shapes`: bit-equal, in turns (parent,
+  this, this, parent), with the parent's occupancy and phase split."""
+  from myosuite_tpu_torch.physics import newton_kernel as nk
+  parent = load_parent(path)
+  with ThreadPoolExecutor(2) as pool:
+    builds = [pool.submit(parent.build, True, (), parent.WIDE_SOURCE),
+              pool.submit(parent.build, True, ("NEWTON_PHASE_CLOCKS",),
+                          parent.WIDE_SOURCE)]
+    (plib_path, _, _), (pclk_path, _, _) = [b.result() for b in builds]
+  libs = {"parent": parent.load_wide(plib_path),
+          "this": nk._wide_library()}
+  pclk = parent.load_wide(pclk_path)
+  out = {}
+  for label, args, kw in shapes:
+    nv, nefc = args[1].shape[2], args[1].shape[1]
+    res = {who: nk._launch_wide(lib, args, **kw) for who, lib in libs.items()}
+    same = all(torch.equal(a, b) for a, b in zip(res["parent"], res["this"]))
+    ms = {"parent": [], "this": []}
+    for who in ("parent", "this", "this", "parent"):
+      ms[who].append(cuda_ms(lambda: nk._launch_wide(libs[who], args, **kw),
+                             20))
+    per_sm = libs["parent"].newton_wide_occupancy(nv, nefc)
+    print(f"  16d {label} ({nv}, {nefc}) in turns (parent, this, this, "
+          f"parent): parent {ms['parent']} ms, this {ms['this']} ms per "
+          f"launch ({np.mean(ms['parent']) / np.mean(ms['this']):.3f}x); "
+          f"bit-equal {same}; parent {per_sm} blocks per SM")
+    wide_split(f"parent wide kernel, {label} batch {BATCH}", pclk, args, kw)
+    if not same:
+      raise AssertionError(f"16d: the parent's wide kernel and this one "
+                           f"differ at {label}'s inputs")
+    out[label] = dict(parent_ms=ms["parent"], ms=ms["this"],
+                      parent_blocks_per_sm=per_sm)
+  return out
+
+
+def wide_phase(dev, phase_lib, split_libs, parent=None):
   """Phase 16: the wide route (nv > 40, or rows past the warp kernel's
   shared memory): the edge cases, the cluttered Relocate as the main path
-  of the wide kernel, and the Bimanual record; `phase_lib` is the wide
-  kernel's phase-clock build. Raises on any failed check; returns the
-  numbers."""
+  of the wide kernel, the Bimanual and Relocate records, and with
+  `parent` the parent's wide kernel in turns; `phase_lib` is the wide
+  kernel's phase-clock build, `split_libs` its builds that ask for
+  another carveout (carveout_turns). Raises on any failed check; returns
+  the numbers."""
   watch = Stopwatch()
   print("phase 16 wide route: csrc/newton_solver_wide.cu")
   with watch.part("edge cases"):
     wide_edge_check(dev)
   with watch.part("cluttered Relocate"):
-    scene = clutter_check(dev, phase_lib)
-  with watch.part("Bimanual record"):
-    record = bimanual_record(dev, phase_lib)
+    scene = clutter_check(dev, phase_lib, split_libs)
+  records = {}
+  for name in ("MtxBimanual-v0", "MtxRelocate-v0"):
+    with watch.part(f"{name} record"):
+      records[name] = warp_route_record(dev, phase_lib, name)
+  turns = None
+  if parent:
+    with watch.part("parent's wide kernel"):
+      turns = compare_parent_wide(parent, [
+          ("cluttered Relocate", scene["args"], scene["kw"]),
+          ("Bimanual", records["MtxBimanual-v0"]["args"],
+           records["MtxBimanual-v0"]["kw"])])
   watch.report("phase 16")
-  return dict(scene=scene, record=record)
+  return dict(scene=scene, records=records, parent=turns)
 
 
 def main():
   parser = argparse.ArgumentParser()
-  parser.add_argument("--parent", help="checkout whose Newton kernel to "
-                      "time against this one in turns")
+  parser.add_argument("--parent", help="checkout whose Newton kernels to "
+                      "time against this one in turns (the warp kernel in "
+                      "phase 3, the hand's control step in 14, the wide "
+                      "kernel in 16)")
   opts = parser.parse_args()
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -2989,21 +3124,27 @@ def main():
         f"matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}")
 
-  # 1. build: each kernel's library and its phase-clock one, at once
-  from concurrent.futures import ThreadPoolExecutor
+  # 1. build: each kernel's library and its phase-clock one, and the wide
+  # kernel asking for the largest split and for none, at once
   clocks = ("NEWTON_PHASE_CLOCKS",)
-  with ThreadPoolExecutor(4) as pool:
+  splits = {"largest": "NEWTON_WIDE_CARVEOUT=100",
+            "default": "NEWTON_WIDE_CARVEOUT=-1"}
+  with ThreadPoolExecutor(6) as pool:
     builds = [pool.submit(nk.build, True),
               pool.submit(nk.build, True, clocks),
               pool.submit(nk.build, True, (), nk.WIDE_SOURCE),
               pool.submit(nk.build, True, clocks, nk.WIDE_SOURCE)]
+    split_builds = {name: pool.submit(nk.build, True, (d,), nk.WIDE_SOURCE)
+                    for name, d in splits.items()}
     ((path, seconds, log), (phase_path, phase_s, _),
      (wide_path, wide_s, wide_log), (wide_phase_path, wide_phase_s, _)) = [
          b.result() for b in builds]
+    split_paths = {name: b.result()[0] for name, b in split_builds.items()}
   print(f"phase 1 build: {nk.SOURCE} -> {path} in {seconds:.1f} s; "
         f"phase-clock build {phase_path} in {phase_s:.1f} s; "
         f"{nk.WIDE_SOURCE} -> {wide_path} in {wide_s:.1f} s, its "
-        f"phase-clock build {wide_phase_path} in {wide_phase_s:.1f} s")
+        f"phase-clock build {wide_phase_path} in {wide_phase_s:.1f} s; "
+        f"its builds with {', '.join(splits.values())}")
   for line in (log + wide_log).splitlines():
     if "Compiling" in line or "registers" in line or "spill" in line:
       print("  ptxas:", line.strip())
@@ -3141,8 +3282,10 @@ def main():
 
   mark(15)
   # 16. the wide route
-  wide = wide_phase(dev, nk.load_wide(wide_phase_path))
-  scene, record = wide["scene"], wide["record"]
+  wide = wide_phase(dev, nk.load_wide(wide_phase_path),
+                    {name: nk.load_wide(p) for name, p in split_paths.items()},
+                    opts.parent)
+  scene, records = wide["scene"], wide["records"]
 
   mark(16)
   print("phase ends (s since the start): " + ", ".join(
@@ -3191,12 +3334,16 @@ def main():
       "plain_ms": scene["plain_ms"], "bound_ms": scene["bound_ms"],
       "bound_by": scene["bound_by"], "library_ms": None,
       "blocks_per_sm": scene["blocks_per_sm"],
+      "limited_by": scene["limited_by"], "waves": scene["waves"],
+      "carveout": scene["carveout"],
       "shapes": [dict(nv=scene["nv"], nefc=scene["nefc"], env=scene["env"],
                       ms=scene["ms"], launches=scene["launches"],
                       max_abs_err=scene["max_abs"],
                       bound_ms=scene["bound_ms"],
-                      plain_ms=scene["plain_ms"]),
-                 dict(record, launches=0)]}]}))
+                      plain_ms=scene["plain_ms"])]
+      + [dict({k: v for k, v in r.items() if k not in ("args", "kw")},
+              launches=0) for r in records.values()],
+      "parent_turns": wide["parent"]}]}))
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

@@ -26,36 +26,61 @@
 // nonzero weight its solutions have, against ~84 KB of device traffic
 // (newton_kernel.flops_per_env, bytes_per_env): ~14 flops per byte, under
 // the card's ~20 flops per byte FP32 ridge, so bytes bound it, ~0.10 ms at
-// batch 4096. The kernel runs far from that bound: each Newton step is a
-// chain of dependent stages (the Cholesky's nv columns, each a square root
-// and a division between two block barriers; the backward substitution;
-// the line search's sums), and the time is that chain's latency, which
-// only more envs in flight per SM hide.
+// batch 4096. The kernel runs far from that bound. A Newton step is a chain
+// of dependent stages, but with 6 or more envs per SM the SM, not the
+// chain, sets the pace: each env's cycles grow with the envs beside it
+// (PERF.md), so what counts is the work each env issues, its
+// spills, and the L1 left for the passes over J, which each thread walks
+// row by row from device memory. So a launch asks for the smallest split
+// of the SM's 256 KB that holds the blocks its registers allow
+// (`carveout`): at the scene 196 KB of shared memory, leaving 60 KB of
+// L1; chip_smoke.py phase 16 times it against the largest split (28 KB of
+// L1) and the CUDA runtime's default at the same blocks per SM.
 //
-// What the design does about it, simply, first:
-// - One block of 128 threads per env, so that the wide stages spread over
-//   four warps: J x and qM x give each thread a row (k ascending), J^T f a
-//   column, J^T W J a set of entries of the lower triangle, each thread
-//   holding up to 4 of them in registers while it walks the rows of
-//   nonzero weight in ascending order, and the Cholesky's trailing update
-//   its rows. A block barrier separates the stages.
+// The design:
+// - One block of 128 threads per env. J x and qM x give each thread a row
+//   (k ascending), J^T f a column, J^T W J a set of entries of the lower
+//   triangle, each thread holding kTile of them in registers while it walks
+//   the rows of nonzero weight in ascending order. A block barrier
+//   separates the stages.
 // - The rows of nonzero weight and of nonzero force are listed once per
 //   iteration (a ballot per 32 rows), so J^T W J and J^T f touch only them.
 //   A skipped row adds +-0 to a sum that starts at +0, which changes no bit.
-// - The Cholesky is right-looking, two barriers per column, each thread
-//   updating whole rows of the trailing triangle, with the forward
-//   substitution riding along; the backward substitution and every
-//   sum over a whole vector (the costs, the line search) run in warp 0 alone.
-// - J is read from the input in device memory in each pass (through L1
-//   and L2), never staged: at the scene J is 67.5 KB of an env's 98, and
-//   staging it held an SM to 2 envs; without it, and with the registers
-//   capped at 80 (some spill), 6 fit, and a launch at batch 4096 on an
-//   H100 took 5.4 ms, not 9.8 (PERF.md). qM (rows of odd stride, so that
-//   threads walking rows meet no bank conflict), the triangle and the
-//   vectors live in shared memory where they fit, else in a per-env
-//   workspace in device memory that the wrapper allocates; only the place
-//   of the data changes, never the arithmetic. So the kernel has no limit
-//   of its own on (nv, nefc) but device memory.
+// - The Cholesky goes by entries, two columns a step and two block
+//   barriers a step, so one a column (`factor`, `pair_step`): the block
+//   forms the pair's columns of L once, a row a thread, then all 128
+//   threads update the trailing triangle by entries of it in packed order,
+//   each entry taking both columns' terms in order with one paired load of
+//   each L row; the entries' places come from a table, as no thread has
+//   the registers to hold its own. The forward substitution rides along.
+//   Once at most kWarpFinish rows lie below a pair, warp 0 finishes under
+//   __syncwarp and goes straight on to the backward substitution, whose
+//   x_i reach the lanes by a shuffle: every other x_j stays with the one
+//   lane that updates it.
+// - The row evaluations run on all four warps: the thread that computes
+//   J_e a - aref_e also computes the row's cost, and in each line-search
+//   step every thread computes f_e Jp_e and w_e Jp_e^2 for its rows, into
+//   shared memory. The sums over rows then read those values in warp 0's
+//   order; the line search's run in every warp at once (each gets the same
+//   alpha), from buffers that alternate between steps, so a step costs one
+//   barrier.
+// - 8 envs per SM at the scene, limited by registers (64 a thread,
+//   `kMinBlocks`) within the 196 KB split the launch asks for: 24,016 bytes an
+//   env, so 8 x (24,016 + 1,024 reserved) <= 200,704. Batch 4096 runs in 3.9
+//   waves of 132 x 8, not 5.2 of 132 x 6. For that, aref, R (1 / R is formed
+//   where it is used, the same IEEE division), floss, active, qfrc_smooth and
+//   the damping are read from the inputs where they are used; the line search's
+//   and the costs' buffers, and the factor's pair buffer, live in row vectors
+//   that are dead there; J^T W J holds 2 entries a thread, not 4, so that 64
+//   registers need no spills. J is read from the input in device memory in each
+//   pass, never staged (staging its rows through shared memory by cp.async was
+//   1.5x slower). qM (rows of odd stride, so that threads walking rows meet no
+//   bank conflict), the triangle, the pair buffer and the vectors live in
+//   shared memory where they fit, else in a per-env workspace in device memory
+//   that the wrapper allocates; the kernel is compiled for each of the two
+//   places, so that shared memory is addressed as such. Only the place of the
+//   data changes, never the arithmetic, so the kernel has no limit of its own
+//   on (nv, nefc) but device memory.
 //
 // Every sum keeps the order of the warp kernel and of the plain PyTorch
 // version (newton_kernel.newton_solve_reference, which is also this kernel's
@@ -74,21 +99,21 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr float kEps = 1e-12f;
 constexpr float kRidge = 1e-8f;
 constexpr int kThreads = 128;        // one block per env
-constexpr int kMinBlocks = 6;        // blocks per SM the registers allow
-constexpr int kTile = 4;             // J^T W J entries a thread holds
-constexpr int kRowBatch = 4;         // Cholesky entries a thread loads at once
+constexpr int kMinBlocks = 8;        // blocks per SM: at most 64 registers
+constexpr int kTile = 2;             // J^T W J entries a thread holds
+constexpr int kWarpFinish = 15;      // rows below a pair: warp 0 alone
 constexpr long kSmemLimit = 232448;  // dynamic shared memory of a block
 
 // One env's vectors, in this order. nv-vectors: a_smooth, the current and
 // the candidate point (their roles swap when the candidate is taken), qM (a
 // - a_smooth) of each, the Newton direction (grad, then p, then the Euler
-// right-hand side), a scratch vector (a - a_smooth, qM p), qfrc_smooth,
-// damping, qfrc. Row vectors: aref, 1 / R, floss, active, J a - aref of
-// each point, J p, the weights, the forces and the two row lists.
-enum NvVec { kAs, kA0, kA1, kMda0, kMda1, kP, kTmp, kQfs, kDamph, kQfrc,
-             kNvVecs };
-enum RowVec { kAref, kRinv, kFloss, kActive, kJar0, kJar1, kJp, kW, kF,
-              kListW, kListF, kRowVecs };
+// right-hand side), a scratch vector (a - a_smooth, qM p). Row vectors:
+// J a - aref of each point, J p (which holds the factor's pair buffer
+// during a factorization, where it is long enough), the weights, the
+// forces and the two row lists (the last four also hold the line search's
+// terms, the first of them the row costs).
+enum NvVec { kAs, kA0, kA1, kMda0, kMda1, kP, kTmp, kNvVecs };
+enum RowVec { kJar0, kJar1, kJp, kW, kF, kListW, kListF, kRowVecs };
 // scalars at the head of shared memory: a cost, alpha, the list lengths
 enum Scalar { kCost, kAlpha, kNw, kNf, kScalars };
 
@@ -121,14 +146,28 @@ __host__ __device__ inline int tri(int r) { return r * (r + 1) / 2; }
 // row stride of qM where it is staged: odd
 __host__ __device__ inline int row_ld(int nv) { return nv | 1; }
 
-// floats of one env's triangle and vectors (the workspace, when not staged)
+// The factor's pair buffer: 2 nv floats and 5 scalars, and one float to
+// align it to 8 bytes for paired loads. It lives in the row vector of J p,
+// which no factorization overlaps, where that is long enough, else in
+// floats of its own after the row vectors.
+__host__ __device__ inline bool lw_in_jp(int nv, int nefc) {
+  return nefc >= 2 * nv + 7;
+}
+__host__ __device__ inline int lw_floats(int nv, int nefc) {
+  return lw_in_jp(nv, nefc) ? 0 : 2 * nv + 6;
+}
+// floats of one env's triangle, vectors and pair buffer (the workspace,
+// when not staged; even, so that every env's starts 8-byte aligned)
 __host__ __device__ inline long work_floats(int nv, int nefc) {
-  return tri(nv) + kNvVecs * nv + kRowVecs * nefc;
+  const long n = tri(nv) + kNvVecs * nv + kRowVecs * nefc +
+                 lw_floats(nv, nefc);
+  return n + (n & 1);
 }
 // floats of one env's working set in shared memory: qM, the triangle, the
-// vectors (J is read from device memory)
+// vectors and the pair buffer (J is read from device memory)
 __host__ __device__ inline long staged_floats(int nv, int nefc) {
-  return kScalars + nv * row_ld(nv) + work_floats(nv, nefc);
+  return kScalars + nv * row_ld(nv) + tri(nv) + kNvVecs * nv +
+         kRowVecs * nefc + lw_floats(nv, nefc);
 }
 inline bool staged(int nv, int nefc) {
   return 4 * staged_floats(nv, nefc) <= kSmemLimit;
@@ -138,12 +177,19 @@ inline size_t smem_bytes(int nv, int nefc) {
 }
 
 struct Sys {
-  const float* M;   // qM, rows of stride ldm
-  const float* J;   // J, rows of stride nv, in device memory
-  float* H;         // lower triangle, packed by rows (row r at tri(r))
-  float* v;         // nv-vectors
-  float* r;         // row vectors
-  float* sc;        // scalars
+  const float* M;      // qM, rows of stride ldm
+  const float* J;      // J, rows of stride nv, in device memory
+  const float* aref;   // this env's inputs, in device memory
+  const float* R;
+  const float* floss;
+  const float* active;
+  const float* qfs;
+  const float* damph;
+  float* H;            // lower triangle, packed by rows (row r at tri(r))
+  float* lw;           // the factor's pair buffer
+  float* v;            // nv-vectors
+  float* r;            // row vectors
+  float* sc;           // scalars
   int nv, nefc, nfr, ldm;
   __device__ __forceinline__ float* vec(int i) const { return v + i * nv; }
   __device__ __forceinline__ float* row(int i) const { return r + i * nefc; }
@@ -195,54 +241,84 @@ __device__ __forceinline__ float lane_dot(const float* a, const float* b,
   return acc;
 }
 
+// lane l's part of sum_e x_e before the butterfly: 0 + x_l + x_{l+32} + ...
+__device__ __forceinline__ float lane_sum(const float* x, int n, int lane) {
+  float acc = 0.f;
+  for (int e = lane; e < n; e += 32) acc += x[e];
+  return acc;
+}
+
+// 1 / R_e, and floss_e on a friction row or active_e on a limit row, from
+// the inputs (not staged: their 3 nefc floats would cost the scene its
+// eighth env per SM, or L1)
+__device__ __forceinline__ float rinv(const Sys& s, int e) {
+  return 1.f / s.R[e];
+}
+__device__ __forceinline__ float flact(const Sys& s, int e) {
+  return e < s.nfr ? s.floss[e] : s.active[e];
+}
+
 __device__ __forceinline__ void row_force(const Sys& s, int e, float jar,
                                           float* force, float* w) {
-  float ri = s.row(kRinv)[e];
+  float ri = rinv(s, e);
   float quad_f = -jar * ri;
   if (e < s.nfr) {
-    float fl = s.row(kFloss)[e];
+    float fl = flact(s, e);
     *force = fminf(fmaxf(quad_f, -fl), fl);
     *w = fabsf(quad_f) < fl ? ri : 0.f;
   } else {
-    float on = (s.row(kActive)[e] != 0.f && jar < 0.f) ? 1.f : 0.f;
+    float on = (flact(s, e) != 0.f && jar < 0.f) ? 1.f : 0.f;
     *force = on * quad_f;
     *w = on * ri;
   }
 }
 
 __device__ __forceinline__ float row_cost(const Sys& s, int e, float jar) {
-  float ri = s.row(kRinv)[e];
+  float ri = rinv(s, e);
   float quad = 0.5f * jar * jar * ri;
   if (e < s.nfr) {
-    float fl = s.row(kFloss)[e];
+    float fl = flact(s, e);
     float band = fl / fmaxf(ri, kEps);
     return fabsf(jar) < band ? quad : fl * fabsf(jar) - 0.5f * fl * band;
   }
-  return (s.row(kActive)[e] != 0.f && jar < 0.f) ? quad : 0.f;
+  return (flact(s, e) != 0.f && jar < 0.f) ? quad : 0.f;
+}
+
+// out_e = J_e x (- aref_e where `cost` is set, the row's cost then into
+// rc_e) for every row, each sum over k ascending: thread t walks rows t,
+// t + 128, ... of J in place.
+__device__ void j_rows(const Sys& s, const float* x, float* out, float* rc,
+                       bool cost, int t) {
+  for (int e = t; e < s.nefc; e += kThreads) {
+    const float acc = row_dot(s.J + e * s.nv, x, s.nv);
+    if (cost) {
+      const float j = acc - s.aref[e];
+      out[e] = j;
+      rc[e] = row_cost(s, e, j);
+    } else {
+      out[e] = acc;
+    }
+  }
 }
 
 // 0.5 (a - as)^T qM (a - as) + sum_e cost_e(J_e a - aref_e), the same in
 // every thread; leaves qM (a - as) in mda and J a - aref in jar, from which
-// the next iteration starts if the point is taken.
+// the next iteration starts if the point is taken. The thread that computes
+// a row's J_e a - aref_e computes its cost too; warp 0 adds them.
 __device__ float total_cost(const Sys& s, const float* a, float* jar,
                             float* mda, int t) {
   float* da = s.vec(kTmp);
+  float* rc = s.row(kW);   // the row costs
   const float* as = s.vec(kAs);
   for (int i = t; i < s.nv; i += kThreads) da[i] = a[i] - as[i];
   __syncthreads();
-  for (int q = t; q < s.nv + s.nefc; q += kThreads) {
-    if (q < s.nv) {
-      mda[q] = row_dot(s.M + q * s.ldm, da, s.nv);
-    } else {
-      const int e = q - s.nv;
-      jar[e] = row_dot(s.J + e * s.nv, a, s.nv) - s.row(kAref)[e];
-    }
-  }
+  for (int i = t; i < s.nv; i += kThreads)
+    mda[i] = row_dot(s.M + i * s.ldm, da, s.nv);
+  j_rows(s, a, jar, rc, true, t);
   __syncthreads();
   if (t < 32) {
     const float qpart = lane_dot(da, mda, s.nv, t);
-    float c = 0.f;
-    for (int e = t; e < s.nefc; e += 32) c += row_cost(s, e, jar[e]);
+    const float c = lane_sum(rc, s.nefc, t);
     const float cost = 0.5f * warp_sum(qpart) + warp_sum(c);
     if (t == 0) s.sc[kCost] = cost;
   }
@@ -339,68 +415,168 @@ __device__ void hessian(const Sys& s, int nw, int t) {
   }
 }
 
+// The place (row a, column b) of entry m of a packed lower triangle, b <=
+// a, for m < kPlaces: one table for every env, read through the read-only
+// path (a thread's places are the same for every column, but 64 registers
+// cannot hold them).
+constexpr int kPlaces = 1024;
+struct PlaceTable {
+  unsigned short ab[kPlaces];   // a | b << 8
+  constexpr PlaceTable() : ab() {
+    int a = 0, b = 0;
+    for (int m = 0; m < kPlaces; ++m) {
+      ab[m] = (unsigned short)(a | b << 8);
+      if (++b > a) {
+        ++a;
+        b = 0;
+      }
+    }
+  }
+};
+__device__ const PlaceTable kPlaceTable;
+
+__device__ __forceinline__ void place(int m, int& a, int& b) {
+  if (m < kPlaces) {
+    const unsigned ab = __ldg(&kPlaceTable.ab[m]);
+    a = ab & 0xff;
+    b = ab >> 8;
+  } else {
+    unpack(m, a, b);
+  }
+}
+
+template <int kN>
+__device__ __forceinline__ void step_sync() {
+  if constexpr (kN == kThreads) __syncthreads();
+  else __syncwarp();
+}
+
+// Columns k and k + 1 of the factor, by kN threads (t < kN: the block
+// under block barriers, or warp 0 under __syncwarp). After the sync that
+// ends the step before, column k is final and column k + 1 lacks only
+// column k's term. Phase 1: each thread that takes a row i > k + 1 forms
+// L_ik = S_ik / d_k, d_k = sqrt(max(S_kk, eps)), then column k + 1's
+// S_{i,k+1} - L_ik L_{k+1,k} (the operations of that entry's update in
+// column k) and L_{i,k+1} = that / d_{k+1}, writes both into place and
+// into the pair buffer lw (lw[2x], lw[2x + 1] for row k + 2 + x), which
+// nobody else reads or writes in this phase; thread kN - 1 forms L_kk,
+// L_{k+1,k}, L_{k+1,k+1}, y_k and y_{k+1} into lw's scalars. Phase 2: the
+// trailing triangle below k + 1 by entries, S_ij = (S_ij - L_ik L_jk) -
+// L_{i,k+1} L_{j,k+1}, a thread taking entries t, t + kN, ... of it in
+// packed order, two at a time; b_i = (b_i - L_ik y_k) - L_{i,k+1} y_{k+1}
+// by the rows' threads; the scalars into place, where nobody reads them
+// in this phase.
+template <int kN>
+__device__ __forceinline__ void pair_step(float* H, float* b, float* lw,
+                                          int nv, int k, int t) {
+  const int c = k + 2, n = nv - c;   // rows below k + 1
+  float* sc = lw + 2 * nv;           // L_kk, L_{k+1,k}, L_{k+1,k+1}, y
+  const float p0 = H[tri(k) + k];
+  const float d0 = sqrtf(fmaxf(p0, kEps));
+  const float l10 = H[tri(k + 1) + k] / d0;
+  const float p1 = H[tri(k + 1) + k + 1] - l10 * l10;
+  const float d1 = sqrtf(fmaxf(p1, kEps));
+  for (int x = t; x < n; x += kN) {
+    const int r = tri(c + x);
+    const float la = H[r + k] / d0;
+    const float lb = (H[r + k + 1] - la * l10) / d1;
+    H[r + k] = la;
+    H[r + k + 1] = lb;
+    lw[2 * x] = la;
+    lw[2 * x + 1] = lb;
+  }
+  if (t == kN - 1) {
+    const float lkk0 = p0 / d0, y0 = b[k] / lkk0;
+    const float lkk1 = p1 / d1, y1 = (b[k + 1] - l10 * y0) / lkk1;
+    sc[0] = lkk0;
+    sc[1] = l10;
+    sc[2] = lkk1;
+    sc[3] = y0;
+    sc[4] = y1;
+  }
+  step_sync<kN>();
+  const int count = tri(n), base = tri(c) + c;
+  const float2* l2 = reinterpret_cast<const float2*>(lw);
+  for (int m = t; m < count; m += 2 * kN) {
+    // two entries at once: both loads before both stores (the entries are
+    // distinct, which the compiler cannot see)
+    const int m2 = m + kN;
+    const bool two = m2 < count;
+    int a, bb, a2 = 0, b2 = 0;
+    place(m, a, bb);
+    if (two) place(m2, a2, b2);
+    const int q = m + c * a + base, q2 = m2 + c * a2 + base;
+    const float2 la = l2[a], lb = l2[bb];
+    float v = H[q], v2 = 0.f;
+    if (two) {
+      const float2 la2 = l2[a2], lb2 = l2[b2];
+      v2 = (H[q2] - la2.x * lb2.x) - la2.y * lb2.y;
+    }
+    v = (v - la.x * lb.x) - la.y * lb.y;
+    H[q] = v;
+    if (two) H[q2] = v2;
+  }
+  const float y0 = sc[3], y1 = sc[4];
+  for (int x = t; x < n; x += kN) {
+    const float2 l = l2[x];
+    b[c + x] = (b[c + x] - l.x * y0) - l.y * y1;
+  }
+  if (t == kN - 1) {
+    H[tri(k) + k] = sc[0];
+    H[tri(k + 1) + k] = sc[1];
+    H[tri(k + 1) + k + 1] = sc[2];
+    b[k] = y0;
+    b[k + 1] = y1;
+  }
+  step_sync<kN>();
+}
+
 // In-place right-looking Cholesky of H with the forward substitution of b
-// (which becomes y, L y = b) riding along. Column k: d = sqrt(max(S_kk,
-// eps)), L_ik = S_ik / d for i >= k, y_k = b_k / L_kk; then b_i -= L_ik y_k
-// and S_ij -= L_ik L_jk for k < j <= i, so each entry subtracts over k
-// ascending; a thread takes whole rows i of the trailing triangle, whose
-// L_jk it reads as all threads do, in step. The diagonal is written in the
-// second stage, which reads no diagonal entry of column k. Starts and ends
-// at a barrier.
+// (which becomes y, L y = b) riding along; subtracts S_ij -= L_ik L_jk for
+// k < j <= i over k ascending, and b_i -= L_ik y_k likewise, as the plain
+// version does. Two columns a step (`pair_step`), two syncs a step: one
+// barrier a column. While more than kWarpFinish rows lie below a pair, the
+// block takes the step under block barriers; then warp 0 finishes alone
+// under __syncwarp, the other warps return, and an odd last column is
+// warp 0's lane 0's. Starts after a block barrier; ends with warp 0
+// synchronised and the factor and y in place for it (the caller's
+// back_solve), the block not.
 __device__ void factor(const Sys& s, float* b, int t) {
   float* H = s.H;
   const int nv = s.nv;
-  for (int k = 0; k < nv; ++k) {
-    const int dk = tri(k) + k;
-    const float piv = H[dk];
-    const float d = sqrtf(fmaxf(piv, kEps));
-    for (int i = k + 1 + t; i < nv; i += kThreads)
-      H[tri(i) + k] = H[tri(i) + k] / d;
-    float lkk = 0.f;
-    if (t == 0) {
-      lkk = piv / d;
-      b[k] = b[k] / lkk;
-    }
-    __syncthreads();
-    if (t == 0) H[dk] = lkk;
-    const float yk = b[k];
-    for (int i = k + 1 + t; i < nv; i += kThreads) {
-      float* row = H + tri(i);
-      const float lik = row[k];
-      b[i] = b[i] - lik * yk;
-      // row[j] -= lik L_jk for k < j <= i, kRowBatch at a time: a batch's
-      // loads go out together (the stores of one batch would otherwise
-      // hold back the loads of the next; they never meet column k)
-      int j = k + 1, off = tri(j) + k;   // L_jk at H[off]
-      for (; j + kRowBatch - 1 <= i; j += kRowBatch) {
-        float l[kRowBatch], r[kRowBatch];
-#pragma unroll
-        for (int u = 0; u < kRowBatch; ++u) {
-          l[u] = H[off];
-          off += j + u + 1;
-          r[u] = row[j + u];
-        }
-#pragma unroll
-        for (int u = 0; u < kRowBatch; ++u) row[j + u] = r[u] - lik * l[u];
-      }
-      for (; j <= i; ++j, off += j) row[j] = row[j] - lik * H[off];
-    }
-    __syncthreads();
+  int k = 0;
+  for (; k + 1 < nv && nv - k - 2 > kWarpFinish; k += 2)
+    pair_step<kThreads>(H, b, s.lw, nv, k, t);
+  if (t >= 32) return;
+  for (; k + 1 < nv; k += 2) pair_step<32>(H, b, s.lw, nv, k, t);
+  if (k < nv && t == 0) {
+    const float p = H[tri(k) + k];
+    const float lkk = p / sqrtf(fmaxf(p, kEps));
+    H[tri(k) + k] = lkk;
+    b[k] = b[k] / lkk;
   }
+  __syncwarp();
 }
 
-// Warp 0: solve L^T x = y in place, rows from the last
+// Warp 0: solve L^T x = y in place, rows from the last. x_j (j = lane mod
+// 32) is read and written by its lane alone; each x_i reaches the others
+// by a shuffle.
 __device__ void back_solve(const Sys& s, float* x, int lane) {
   const float* L = s.H;
   for (int i = s.nv - 1; i >= 0; --i) {
-    if (lane == 0) x[i] = x[i] / L[tri(i) + i];
-    __syncwarp();
-    const float xi = x[i];
-    for (int j = lane; j < i; j += 32) x[j] = x[j] - L[tri(i) + j] * xi;
-    __syncwarp();
+    const int owner = i & 31;
+    float xi = 0.f;
+    if (lane == owner) {
+      xi = x[i] / L[tri(i) + i];
+      x[i] = xi;
+    }
+    xi = __shfl_sync(kFull, xi, owner);
+    const float* Li = L + tri(i);
+    for (int j = lane; j < i; j += 32) x[j] = x[j] - Li[j] * xi;
   }
 }
 
+template <bool kStaged>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) newton_wide_kernel(
     const float* __restrict__ qM, const float* __restrict__ J,
     const float* __restrict__ aref, const float* __restrict__ R,
@@ -410,10 +586,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) newton_wide_kernel(
     float* __restrict__ qfrc, float* __restrict__ force,
     float* __restrict__ asmooth, float* __restrict__ qacc_euler,
     float* __restrict__ work, unsigned long long* __restrict__ cycles,
-    int in_smem, int nv, int nefc, int nfr, int iterations,
-    int ls_iterations) {
-  extern __shared__ float smem[];
+    int nv, int nefc, int nfr, int iterations, int ls_iterations) {
+  extern __shared__ __align__(16) float smem[];
   const int t = threadIdx.x;
+  const int lane = t & 31;
 #ifdef NEWTON_PHASE_CLOCKS
   unsigned long long phase_acc[kPhases] = {};
   long long t_phase = clock64();
@@ -427,7 +603,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) newton_wide_kernel(
   s.nfr = nfr;
   s.sc = smem;
   float* base;
-  if (in_smem) {
+  int origin;   // floats from an 8-byte boundary to base
+  if constexpr (kStaged) {
     const int ld = row_ld(nv);
     float* M = smem + kScalars;
     for (int i = t; i < nv * nv; i += kThreads)
@@ -435,25 +612,30 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) newton_wide_kernel(
     s.M = M;
     s.ldm = ld;
     base = M + nv * ld;
+    origin = kScalars + nv * ld;
   } else {
     s.M = gM;
     s.ldm = nv;
     base = work + env * work_floats(nv, nefc);
+    origin = 0;
   }
   s.J = J + env * nefc * nv;
+  s.aref = aref + r0;
+  s.R = R + r0;
+  s.floss = floss + r0;
+  s.active = active + r0;
+  s.qfs = qfs + v0;
+  s.damph = damph + v0;
   s.H = base;
   s.v = base + tri(nv);
   s.r = s.v + kNvVecs * nv;
-  for (int e = t; e < nefc; e += kThreads) {
-    s.row(kAref)[e] = aref[r0 + e];
-    s.row(kRinv)[e] = 1.f / R[r0 + e];
-    s.row(kFloss)[e] = floss[r0 + e];
-    s.row(kActive)[e] = active[r0 + e];
+  {
+    const int o = tri(nv) + kNvVecs * nv +
+                  (lw_in_jp(nv, nefc) ? kJp : kRowVecs) * nefc;
+    s.lw = base + o + ((origin + o) & 1);
   }
   for (int i = t; i < nv; i += kThreads) {
-    s.vec(kQfs)[i] = qfs[v0 + i];
-    s.vec(kAs)[i] = qfs[v0 + i];
-    s.vec(kDamph)[i] = damph[v0 + i];
+    s.vec(kAs)[i] = s.qfs[i];
     s.vec(kA0)[i] = warm[v0 + i];
   }
   __syncthreads();
@@ -503,35 +685,36 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) newton_wide_kernel(
     __syncthreads();
     PHASE(kSolve);
 
-    // J p and qM p, then the line search in warp 0
+    // J p and qM p, then the line search: in each step every thread
+    // evaluates its rows at alpha, and every warp sums them in warp 0's
+    // order to the same next alpha. The terms go to two pairs of rows that
+    // are dead here (the weights and forces, the lists), in turn, so a
+    // step needs one barrier: a thread writes a pair only after the
+    // barrier that every reader of its previous use had to reach first.
     float* mp = s.vec(kTmp);
     float* jp = s.row(kJp);
-    for (int q = t; q < nv + nefc; q += kThreads) {
-      if (q < nv) mp[q] = row_dot(s.M + q * s.ldm, p, nv);
-      else jp[q - nv] = row_dot(s.J + (q - nv) * nv, p, nv);
-    }
+    for (int i = t; i < nv; i += kThreads)
+      mp[i] = row_dot(s.M + i * s.ldm, p, nv);
+    j_rows(s, p, jp, nullptr, false, t);
     __syncthreads();
-    if (t < 32) {
-      const float g0 = warp_sum(lane_dot(p, mda, nv, t));
-      const float pmp = warp_sum(lane_dot(p, mp, nv, t));
-      float alpha = 1.f;
-      for (int ls = 0; ls < ls_iterations; ++ls) {
-        float sf = 0.f, sw = 0.f;
-        for (int e = t; e < nefc; e += 32) {
-          float f, w;
-          const float jpe = jp[e];
-          row_force(s, e, jar[e] + alpha * jpe, &f, &w);
-          sf += f * jpe;
-          sw += w * jpe * jpe;
-        }
-        const float dphi = g0 + alpha * pmp - warp_sum(sf);
-        const float ddphi = pmp + warp_sum(sw);
-        alpha = fminf(fmaxf(alpha - dphi / fmaxf(ddphi, kEps), 0.f), 4.f);
+    const float g0 = warp_sum(lane_dot(p, mda, nv, lane));
+    const float pmp = warp_sum(lane_dot(p, mp, nv, lane));
+    float alpha = 1.f;
+    for (int ls = 0; ls < ls_iterations; ++ls) {
+      float* tf = s.row(ls & 1 ? kListF : kF);
+      float* tw = s.row(ls & 1 ? kListW : kW);
+      for (int e = t; e < nefc; e += kThreads) {
+        float f, w;
+        const float jpe = jp[e];
+        row_force(s, e, jar[e] + alpha * jpe, &f, &w);
+        tf[e] = f * jpe;
+        tw[e] = w * jpe * jpe;
       }
-      if (t == 0) s.sc[kAlpha] = alpha;
+      __syncthreads();
+      const float dphi = g0 + alpha * pmp - warp_sum(lane_sum(tf, nefc, lane));
+      const float ddphi = pmp + warp_sum(lane_sum(tw, nefc, lane));
+      alpha = fminf(fmaxf(alpha - dphi / fmaxf(ddphi, kEps), 0.f), 4.f);
     }
-    __syncthreads();
-    const float alpha = s.sc[kAlpha];
     float* a_new = s.vec(kA0 + (cur ^ 1));
     for (int i = t; i < nv; i += kThreads) a_new[i] = a[i] + alpha * p[i];
     __syncthreads();
@@ -553,12 +736,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) newton_wide_kernel(
   for (int i = t; i < nv; i += kThreads) {
     const float q = column_force(s, i, nf);
     qfrc[v0 + i] = q;
-    p[i] = s.vec(kQfs)[i] + q;
+    p[i] = s.qfs[i] + q;
   }
   PHASE(kFinal);
 
   // 5. implicit-damping Euler solve
-  fill_h(s, s.vec(kDamph), t);
+  fill_h(s, s.damph, t);
   __syncthreads();
   factor(s, p, t);
   if (t < 32) back_solve(s, p, t);
@@ -578,6 +761,80 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) newton_wide_kernel(
 #endif
 }
 
+// the kernel for these sizes: working set in shared memory, or in the
+// device-memory workspace
+const void* kernel_for(int nv, int nefc) {
+  return staged(nv, nefc) ? (const void*)newton_wide_kernel<true>
+                          : (const void*)newton_wide_kernel<false>;
+}
+
+// The splits of an SM's 256 KB between shared memory and L1 that an H100
+// offers, in KB of shared memory (CUDA C++ Programming Guide, compute
+// capability 9.0). A carveout is a percentage of the largest; the runtime
+// takes the smallest split at least that large.
+constexpr int kSplitsKB[] = {0, 8, 16, 32, 64, 100, 132, 164, 196, 228};
+constexpr int kSplits = sizeof(kSplitsKB) / sizeof(kSplitsKB[0]);
+constexpr int kLargestKB = kSplitsKB[kSplits - 1];
+
+// bytes of shared memory the runtime keeps for each block
+int reserved_smem() {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrReservedSharedMemoryPerBlock,
+                         dev);
+  return bytes;
+}
+
+// the blocks per SM that shared memory alone allows at a split of `kb` KB
+long smem_blocks(int nv, int nefc, long kb) {
+  return kb * 1024 / ((long)smem_bytes(nv, nefc) + reserved_smem());
+}
+
+// The carveout a launch at these sizes asks for: the smallest split that
+// holds as many blocks as the registers allow (kMinBlocks), or as shared
+// memory allows at the largest split where that is fewer, so that the rest
+// of the SM stays L1 for the passes over J. The NEWTON_WIDE_CARVEOUT build
+// asks for that percentage instead (-1: no preference, the runtime's
+// default), to time the kernel at another split.
+int carveout(int nv, int nefc) {
+#ifdef NEWTON_WIDE_CARVEOUT
+  (void)nv;
+  (void)nefc;
+  return NEWTON_WIDE_CARVEOUT;
+#else
+  long blocks = smem_blocks(nv, nefc, kLargestKB);
+  if (blocks > kMinBlocks) blocks = kMinBlocks;
+  const long need = blocks * ((long)smem_bytes(nv, nefc) + reserved_smem());
+  int i = 0;
+  while (i < kSplits - 1 && kSplitsKB[i] * 1024L < need) ++i;
+  // rounded down, so that the split taken is kSplitsKB[i] and no larger
+  return (int)(kSplitsKB[i] * 100L / kLargestKB);
+#endif
+}
+
+// the split, in KB of shared memory, that a carveout of `pct` selects
+// (-1 where it has none: the runtime chooses)
+int split_kb(int pct) {
+  if (pct < 0) return -1;
+  int i = 0;
+  while (i < kSplits - 1 && kSplitsKB[i] * 100L < (long)pct * kLargestKB) ++i;
+  return kSplitsKB[i];
+}
+
+// Set the attributes a launch at these sizes needs: its dynamic shared
+// memory and its carveout.
+cudaError_t configure(int nv, int nefc) {
+  const void* fn = kernel_for(nv, nefc);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes(nv, nefc));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+        carveout(nv, nefc));
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
@@ -593,18 +850,41 @@ long newton_wide_smem_bytes(int nv, int nefc) {
   return (long)smem_bytes(nv, nefc);
 }
 
-// Blocks that fit on one SM at once at these sizes, or a negative CUDA
-// error.
+// Blocks that fit on one SM at once at these sizes, with the attributes
+// that a launch sets, or a negative CUDA error.
 int newton_wide_occupancy(int nv, int nefc) {
   if (nv < 1 || nefc < 0) return -(int)cudaErrorInvalidValue;
-  const int smem = (int)smem_bytes(nv, nefc);
-  cudaError_t err = cudaFuncSetAttribute(
-      newton_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = configure(nv, nefc);
   int blocks = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, newton_wide_kernel, kThreads, smem);
+        &blocks, kernel_for(nv, nefc), kThreads, (int)smem_bytes(nv, nefc));
   return err == cudaSuccess ? blocks : -(int)err;
+}
+
+// What a launch at these sizes is set up with, read back from the runtime
+// (cudaFuncGetAttributes of the instantiation launched) after setting it:
+// out[0] the preferred carveout in percent of the largest split (-1: none),
+// out[1] registers and out[2] bytes of local memory a thread, out[3] the
+// split in KB of shared memory that out[0] selects (-1: the runtime's
+// default), out[4] and out[5] the blocks per SM that shared memory alone
+// allows at that split (-1 where the runtime chooses) and at the largest.
+// Returns 0 or a CUDA error.
+int newton_wide_config(int nv, int nefc, int* out) {
+  if (nv < 1 || nefc < 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = configure(nv, nefc);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&attr, kernel_for(nv, nefc));
+  if (err != cudaSuccess) return (int)err;
+  const int kb = split_kb(attr.preferredShmemCarveout);
+  out[0] = attr.preferredShmemCarveout;
+  out[1] = attr.numRegs;
+  out[2] = (int)attr.localSizeBytes;
+  out[3] = kb;
+  out[4] = kb < 0 ? -1 : (int)smem_blocks(nv, nefc, kb);
+  out[5] = (int)smem_blocks(nv, nefc, kLargestKB);
+  return 0;
 }
 
 // All pointers are device pointers to contiguous float32, batch-first:
@@ -628,17 +908,16 @@ int newton_wide_f32(const void* qM, const void* J, const void* aref,
   if (nv < 1 || nefc < 0 || (!in_smem && work == nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(nv, nefc);
-  cudaError_t err = cudaFuncSetAttribute(
-      newton_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaError_t err = configure(nv, nefc);
   if (err != cudaSuccess) return (int)err;
-  newton_wide_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
+  auto kernel = in_smem ? newton_wide_kernel<true> : newton_wide_kernel<false>;
+  kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)qM, (const float*)J, (const float*)aref,
       (const float*)R, (const float*)floss, (const float*)active,
       (const float*)warm, (const float*)qfrc_smooth, (const float*)damph,
       (float*)qacc, (float*)qfrc, (float*)force, (float*)asmooth,
-      (float*)qacc_euler, (float*)work, (unsigned long long*)cycles,
-      in_smem ? 1 : 0, nv, nefc, n_friction, iterations, ls_iterations);
+      (float*)qacc_euler, (float*)work, (unsigned long long*)cycles, nv,
+      nefc, n_friction, iterations, ls_iterations);
   return (int)cudaGetLastError();
 }
 

@@ -16,8 +16,11 @@ constraint solve and the implicit-damping Euler solve for every env.
   carried between iterations) keeps short; see the source.
 - "wide" (`csrc/newton_solver_wide.cu`): one block of 128 threads per env,
   for every other shape: nv > 40, or rows past the warp kernel's shared
-  memory. Its working set lives in shared memory where it fits, else in a
-  per-env workspace in device memory, so it has no limit of its own.
+  memory. Its Cholesky goes by entries over all four warps, one block
+  barrier a column, its row evaluations too, and 8 envs share an SM at the
+  cluttered Relocate's (45, 375); see the source. Its working set lives in
+  shared memory where it fits, else in a per-env workspace in device
+  memory, so it has no limit of its own.
 
 `newton_solve` dispatches on the route and on the device of its inputs:
 CUDA tensors go to the route's kernel (or raise), CPU tensors to its plain
@@ -41,7 +44,7 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -144,6 +147,8 @@ def load_wide(path: str):
     fn.restype = i64
   lib.newton_wide_occupancy.argtypes = [i32, i32]
   lib.newton_wide_occupancy.restype = i32
+  lib.newton_wide_config.argtypes = [i32, i32, ctypes.POINTER(i32)]
+  lib.newton_wide_config.restype = i32
   return lib
 
 
@@ -177,11 +182,17 @@ def warp_smem_per_env(nv: int, nefc: int) -> int:
 
 def wide_smem_bytes(nv: int, nefc: int) -> int:
   """Bytes of one env's working set in the wide kernel's shared memory (4
-  scalars, qM rows of odd stride, the triangle, 10 dof and 11 row vectors;
-  J is read from device memory): the C library's layout, computed here for
-  the tests. Where it passes a block's limit, the kernel works in a
-  device-memory workspace instead (`newton_wide_workspace_floats`)."""
-  return 4 * (4 + nv * (nv | 1) + _tri(nv) + 10 * nv + 11 * nefc)
+  scalars, qM rows of odd stride, the triangle, 7 dof and 7 row vectors,
+  and the factor's pair buffer of 2 nv floats and 5 scalars, 8-byte
+  aligned: inside the row vector of J p, which is dead in a factorization,
+  where that holds it, else after the rows; J, aref, R, floss, active,
+  qfrc_smooth and the damping are read from device memory): the C
+  library's layout (`newton_wide_smem_bytes`), computed here for the CPU
+  tests; the card's tests hold the two equal. Where it passes a block's
+  limit, the kernel works in a device-memory workspace instead
+  (`newton_wide_workspace_floats`)."""
+  pair = 0 if nefc >= 2 * nv + 7 else 2 * nv + 6
+  return 4 * (4 + nv * (nv | 1) + _tri(nv) + 7 * nv + 7 * nefc + pair)
 
 
 def route(nv: int, nefc: int) -> str:
@@ -295,7 +306,11 @@ EDGE_CASES = ((5, 9, 3, "some", 5, False), (5, 9, 3, "some", 37, False),
 # two where the wide kernel works in its device-memory workspace: nv 200
 # with friction rows and nv 256, where qM alone passes a block's shared
 # memory. Bimanual's (38, 336) takes the warp kernel; the wide kernel is
-# held there in chip_smoke.py phase 16c.
+# held there in chip_smoke.py phase 16c. Then the edges of the Cholesky by
+# entries, which takes columns in pairs: nv 47 and 48, whose first pair's
+# trailing triangles (1,035 and 1,081 entries, not a multiple of 128) pass
+# the kernel's table of 1,024 entry places, and nv 41 at 110 rows, every
+# limit row active.
 WIDE_EDGE_CASES = ((41, 9, 0, "some", 37, False),
                    (41, 70, 3, "some", 37, False),
                    (45, 1, 0, "all", 37, False),
@@ -308,7 +323,19 @@ WIDE_EDGE_CASES = ((41, 9, 0, "some", 37, False),
                    (38, 1200, 0, "some", 5, False),
                    (38, 1200, 3, "some", 5, True),
                    (200, 100, 3, "some", 3, False),
-                   (256, 300, 0, "some", 3, False))
+                   (256, 300, 0, "some", 3, False),
+                   (47, 33, 0, "some", 37, False),
+                   (48, 100, 3, "some", 37, False),
+                   (41, 110, 0, "all", 37, False))
+
+# The wide kernel's factor takes columns in pairs and finishes in warp 0
+# once at most 15 rows lie below a pair: at nv 17 the whole factor runs
+# there (an odd last column too), at nv 18 and 19 one pair runs first under
+# block barriers (then 14 and 15 rows). These shapes take the warp route,
+# so the card holds the wide kernel there by calling it directly.
+WIDE_FINISH_CASES = ((17, 20, 0, "some", 37, False),
+                     (18, 20, 3, "some", 37, False),
+                     (19, 9, 0, "all", 37, False))
 
 
 def random_batch(seed: int, nv: int, nefc: int, n_friction: int,
@@ -456,6 +483,26 @@ def wide_occupancy(nv: int, nefc: int, lib=None) -> Tuple[int, bool]:
     raise RuntimeError(f"newton_wide_occupancy failed: CUDA error "
                        f"{-blocks}")
   return blocks, lib.newton_wide_workspace_floats(nv, nefc) == 0
+
+
+WIDE_CONFIG = ("carveout_pct", "registers", "local_bytes", "split_kb",
+               "smem_blocks", "smem_blocks_largest")
+
+
+def wide_config(nv: int, nefc: int, lib=None) -> Dict[str, int]:
+  """What a launch of the wide kernel at these sizes is set up with, read
+  back from the runtime (`newton_wide_config`): the shared-memory carveout
+  it asks for (percent of the largest split; -1 none) and the split that
+  selects (KB of shared memory; -1 the runtime's default), registers and
+  local-memory bytes a thread of the instantiation launched, and the
+  blocks per SM that shared memory alone allows at that split and at the
+  largest."""
+  lib = lib or _wide_library()
+  out = (ctypes.c_int * len(WIDE_CONFIG))()
+  err = lib.newton_wide_config(nv, nefc, out)
+  if err != 0:
+    raise RuntimeError(f"newton_wide_config failed: CUDA error {err}")
+  return dict(zip(WIDE_CONFIG, out))
 
 
 def occupancy(nv: int, nefc: int, lib=None) -> Tuple[int, int]:

@@ -144,6 +144,40 @@ def test_wide_kernel_bit_equal_edge_cases(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", newton_kernel.WIDE_FINISH_CASES,
+                         ids=lambda c: "nv{}-nefc{}-fr{}".format(*c[:3]))
+def test_wide_kernel_around_its_warp_finish(cuda, case):
+  """Around the factor's warp finish (nv 17: the whole factor in warp 0;
+  nv 18 and 19: one pair of columns under block barriers first), shapes
+  of the warp route, the wide kernel called directly is bit-equal to the
+  plain version."""
+  nfr = case[2]
+  args = [a.to(cuda) for a in newton_kernel.random_batch(
+      200 + newton_kernel.WIDE_FINISH_CASES.index(case), *case)]
+  out = newton_kernel._launch_wide(newton_kernel._wide_library(), args,
+                                   n_friction=nfr, **KW)
+  ref = newton_kernel.newton_solve_wide_reference(*args, n_friction=nfr,
+                                                  **KW)
+  for o, r, name in zip(out, ref, NAMES):
+    assert torch.equal(o, r), (name, float((o - r).abs().max()))
+
+
+@pytest.mark.cuda
+def test_wide_kernel_runs_8_envs_per_sm_at_the_scene(cuda):
+  """At the cluttered Relocate's (45, 375) 8 blocks (envs) share an SM,
+  the working set in shared memory: 64 registers a thread limit them
+  (shared memory alone would allow 9), and the launch asks for the 196 KB
+  shared-memory split (a carveout of 85 percent, read back from the
+  runtime), the smallest that holds 8 x (24,016 + 1,024) bytes, which
+  leaves 60 KB of L1 for the passes over J."""
+  assert newton_kernel.wide_occupancy(45, 375) == (8, True)
+  config = newton_kernel.wide_config(45, 375)
+  assert config["registers"] <= 64
+  assert (config["carveout_pct"], config["split_kb"]) == (85, 196)
+  assert (config["smem_blocks"], config["smem_blocks_largest"]) == (8, 9)
+
+
+@pytest.mark.cuda
 def test_wide_kernel_equals_warp_kernel_where_both_take(cuda):
   """At Bimanual's (38, 336), which routes to the warp kernel, the wide
   kernel called directly gives the warp kernel's outputs bit for bit; the

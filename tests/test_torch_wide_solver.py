@@ -270,6 +270,36 @@ def test_wide_edge_rows_solve_their_systems(case):
   check_solves_its_systems(case, nk.random_batch(seed, *case))
 
 
+@pytest.mark.parametrize("case", nk.WIDE_FINISH_CASES,
+                         ids=lambda c: "nv{}-nefc{}-fr{}".format(*c[:3]))
+def test_wide_finish_rows_solve_their_systems(case):
+  """The plain version on the rows around the wide kernel's warp finish,
+  which the card holds the wide kernel to bit for bit by calling it
+  directly: they take the warp route, and the outputs solve their
+  systems."""
+  from tests.test_torch_solver import check_solves_its_systems
+  assert nk.route(*case[:2]) == "warp"
+  seed = 200 + nk.WIDE_FINISH_CASES.index(case)
+  check_solves_its_systems(case, nk.random_batch(seed, *case))
+
+
+@pytest.mark.parametrize("nv, nefc, floats", [
+    (45, 375, 4 + 45 * 45 + 1035 + 7 * 45 + 7 * 375),
+    (38, 336, 4 + 38 * 39 + 741 + 7 * 38 + 7 * 336),
+    (64, 90, 4 + 64 * 65 + 2080 + 7 * 64 + 7 * 90 + 2 * 64 + 6)])
+def test_wide_smem_bytes_is_the_kernels_layout(nv, nefc, floats):
+  """wide_smem_bytes is the wide kernel's shared-memory layout: 4
+  scalars, qM at an odd row stride, the packed triangle, 7 dof and 7 row
+  vectors, the factor's pair buffer (2 nv floats, 5 scalars, one to align
+  it) inside the row vector of J p where that holds it (the scene,
+  Bimanual), else after the rows (nv 64 at 90 rows); at the scene 8 envs
+  fit the 196 KB shared-memory split (200,704 bytes) that the kernel's
+  launch asks for, with the 1,024 each block reserves."""
+  assert nk.wide_smem_bytes(nv, nefc) == 4 * floats
+  if (nv, nefc) == (45, 375):
+    assert 8 * (nk.wide_smem_bytes(nv, nefc) + 1024) <= 196 * 1024
+
+
 # ---------------------------------------------------------------------------
 # routes and the cluttered scene
 # ---------------------------------------------------------------------------
