@@ -1,0 +1,7 @@
+"""Every env-step of the control steps completed in the traced run's
+window over the window's wall time, as `env_steps_per_s` is taken."""
+
+
+def read(ctx):
+  w = ctx.window
+  return w.env_steps / w.window_s if w is not None and w.window_s else None
